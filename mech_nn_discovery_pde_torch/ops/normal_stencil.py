@@ -1,0 +1,342 @@
+"""Assembled block-stencil normal operator AtA, and kernel K1 that applies it.
+
+Every constraint row couples variables along at most one coordinate axis, so
+(AtA)[(p,i),(q,j)] is nonzero only for q = p + delta * e_c with |delta| <= 4,
+and the only channel pairs at delta != 0 are (value, value), (value,
+deriv_c) and (deriv_c, value).  AtA is assembled once per solve into
+
+  coef[b, ch, point] (channel-major) with channels =
+      [ dense n_mi x n_mi offset-0 block (row-major) |
+        per axis c, per delta in 1..4:
+            vv   : (value@p,   value@p+d)
+            vd_k : (value@p,   deriv_k@p+d)   k over central_mi_indices(c)
+            dv_k : (deriv_k@p, value@p+d) ]
+
+Band fields are stored on the full grid and are zero wherever the coupling
+does not exist (every point whose axis-c index exceeds d-1-delta), so shifted
+multiply-adds on the C-order flat grid never pick up contributions across
+axis edges.  Symmetry is applied, not stored: each band entry acts in both
+directions.
+
+`stencil_apply` is the one entry point for y = (AtA) x.  On CUDA tensors it
+launches kernel K1 (csrc/stencil_apply.cu), which replaces the TPU kernel
+`_stencil_kernel_body` of mech_nn_discovery_pde_tpu/ops/normal_stencil.py;
+on CPU tensors it runs `stencil_apply_plain`, the stride-grouped padded
+apply of the JAX package (`normal_stencil_matvec_padded`) in the same
+layout.  Both carry the same epilogue (residual update, iterate update).
+"""
+
+from __future__ import annotations
+
+from itertools import groupby
+from typing import Dict, List, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from mech_nn_discovery_pde_torch.ops import _cuda
+from mech_nn_discovery_pde_torch.ops.constraints import ConstraintSpec, _point_strides
+from mech_nn_discovery_pde_torch.ops.structured import StructuredValues, _shift_slices
+
+MAX_DELTA = 4  # largest axis offset in AtA (one-sided 5-point edge stencils)
+
+
+class Band(NamedTuple):
+    coord: int
+    delta: int
+    stride: int  # flat grid-point stride = delta * stride_c
+    kind: str  # 'vv' | 'vd' | 'dv'
+    mi_k: int  # deriv channel (unused for 'vv')
+    ch: int  # channel index in coef
+
+
+class NormalStencilDesc(NamedTuple):
+    coord_dims: Tuple[int, ...]
+    n_mi: int
+    grid_size: int
+    n_channels: int
+    bands: Tuple[Band, ...]
+
+
+def make_desc(spec: ConstraintSpec) -> NormalStencilDesc:
+    if spec.evolution:
+        raise NotImplementedError(
+            "evolution=True equation rows reference the previous time step; "
+            "the assembled block-stencil normal operator assumes same-point "
+            "equation entries"
+        )
+    vs = spec.var_set
+    m = vs.n_mi
+    strides = _point_strides(spec.coord_dims)
+    ch = m * m
+    bands: List[Band] = []
+    for c in range(vs.n_coord):
+        for delta in range(1, MAX_DELTA + 1):
+            s = int(delta * strides[c])
+            bands.append(Band(c, delta, s, "vv", 0, ch))
+            ch += 1
+            for mik in vs.central_mi_indices(c):
+                bands.append(Band(c, delta, s, "vd", mik, ch))
+                ch += 1
+                bands.append(Band(c, delta, s, "dv", mik, ch))
+                ch += 1
+    return NormalStencilDesc(
+        coord_dims=tuple(spec.coord_dims),
+        n_mi=m,
+        grid_size=vs.grid_size,
+        n_channels=ch,
+        bands=tuple(bands),
+    )
+
+
+def _band_channel(desc: NormalStencilDesc, coord, delta, kind, mi_k=0) -> int:
+    for b in desc.bands:
+        if (
+            b.coord == coord
+            and b.delta == delta
+            and b.kind == kind
+            and (kind == "vv" or b.mi_k == mi_k)
+        ):
+            return b.ch
+    raise KeyError((coord, delta, kind, mi_k))
+
+
+def _band_channels(b: Band) -> Tuple[int, int]:
+    """(mi channel at p, mi channel at p+stride) of a band entry."""
+    if b.kind == "vv":
+        return 0, 0
+    if b.kind == "vd":
+        return 0, b.mi_k
+    return b.mi_k, 0  # 'dv'
+
+
+def build_normal_coef(
+    spec: ConstraintSpec, desc: NormalStencilDesc, sv: StructuredValues
+) -> torch.Tensor:
+    """Assemble the AtA stencil fields from batched StructuredValues.
+
+    Returns channel-major (bs, n_channels, grid_size), contiguous.  Assembly
+    runs point-major on grid slices and transposes once at the end.  Runs
+    once per solve per level; not a hot path."""
+    vs = spec.var_set
+    dims = tuple(spec.coord_dims)
+    nd = len(dims)
+    m = vs.n_mi
+    bs = sv.eq.shape[0]
+    C = sv.eq.new_zeros((bs,) + dims + (desc.n_channels,))
+
+    def dch(i: int, j: int) -> int:
+        return i * m + j
+
+    def ax(c: int, lo: int, hi: int):
+        idx = [slice(None)] * (nd + 1)
+        idx[1 + c] = slice(lo, hi)
+        return tuple(idx)
+
+    # ---- equation rows: full mi outer product at interior points ----------
+    interior = (slice(None), slice(1, None)) + (slice(1, -1),) * (nd - 1)
+    outer = sv.eq[..., :, None] * sv.eq[..., None, :]
+    C[interior + (slice(0, m * m),)] += outer.reshape(outer.shape[:-2] + (m * m,))
+
+    # ---- initial rows: squared weights on the diagonal --------------------
+    off = 0
+    for box in spec.iv_boxes:
+        size = box.size * spec.n_iv
+        v = sv.init[:, off : off + size].reshape((bs,) + tuple(box.shape) + (spec.n_iv,))
+        bsl = (slice(None),) + tuple(
+            slice(int(b), int(e) + 1) for b, e in zip(box.begin, box.end)
+        )
+        C[bsl + (dch(box.mi_index, box.mi_index),)] += (v * v).sum(-1)
+        off += size
+
+    # ---- central rows ------------------------------------------------------
+    for c in range(nd):
+        w = sv.central[c]  # (bs, dims..., n_cmi, 6)
+        cmi = vs.central_mi_indices(c)
+        for rs, offs in _shift_slices(dims[c]):
+            q_lo, q_hi = rs.start, rs.stop
+            wreg = w[ax(c, q_lo, q_hi)]
+            # value-value pairs (summed over derivative orders k)
+            for j1 in range(5):
+                for j2 in range(j1, 5):
+                    o1, o2 = offs[j1], offs[j2]
+                    prod = (wreg[..., :, j1] * wreg[..., :, j2]).sum(-1)
+                    if j1 == j2:
+                        C[ax(c, q_lo + o1, q_hi + o1) + (dch(0, 0),)] += prod
+                    else:
+                        lo_o, hi_o = min(o1, o2), max(o1, o2)
+                        chv = _band_channel(desc, c, hi_o - lo_o, "vv")
+                        C[ax(c, q_lo + lo_o, q_hi + lo_o) + (chv,)] += prod
+            # value-derivative and derivative-derivative pairs
+            for k, mik in enumerate(cmi):
+                w5 = wreg[..., k, 5]
+                for j in range(5):
+                    o = offs[j]
+                    prod = wreg[..., k, j] * w5
+                    if o == 0:
+                        C[ax(c, q_lo, q_hi) + (dch(0, mik),)] += prod
+                        C[ax(c, q_lo, q_hi) + (dch(mik, 0),)] += prod
+                    elif o < 0:
+                        chb = _band_channel(desc, c, -o, "vd", mik)
+                        C[ax(c, q_lo + o, q_hi + o) + (chb,)] += prod
+                    else:
+                        chb = _band_channel(desc, c, o, "dv", mik)
+                        C[ax(c, q_lo, q_hi) + (chb,)] += prod
+                C[ax(c, q_lo, q_hi) + (dch(mik, mik),)] += w5 * w5
+
+    # ---- Taylor rows -------------------------------------------------------
+    n_lead = spec.order + 1
+    for c in range(nd):
+        d = dims[c]
+        cmi = vs.central_mi_indices(c)
+        term_mi = [0] + list(cmi)
+        for v, forward in ((sv.fwd[c], True), (sv.bwd[c], False)):
+            row_sl = ax(c, 0, d - 1) if forward else ax(c, 1, d)
+            lo_sl = ax(c, 0, d - 1)
+            vlast = v[..., n_lead]
+            for a in range(n_lead):
+                for b in range(a, n_lead):
+                    prod = v[..., a] * v[..., b]
+                    ma, mb = term_mi[a], term_mi[b]
+                    if a == b:
+                        C[row_sl + (dch(ma, ma),)] += prod
+                    else:
+                        C[row_sl + (dch(ma, mb),)] += prod
+                        C[row_sl + (dch(mb, ma),)] += prod
+            nbr_sl = ax(c, 1, d) if forward else ax(c, 0, d - 1)
+            C[nbr_sl + (dch(0, 0),)] += vlast * vlast
+            # cross pairs (row terms x neighbor value), stored at the
+            # smaller-index point of the pair
+            C[lo_sl + (_band_channel(desc, c, 1, "vv"),)] += v[..., 0] * vlast
+            for k, mik in enumerate(cmi):
+                kind = "dv" if forward else "vd"
+                chb = _band_channel(desc, c, 1, kind, mik)
+                C[lo_sl + (chb,)] += v[..., 1 + k] * vlast
+
+    return C.reshape(bs, vs.grid_size, desc.n_channels).transpose(1, 2).contiguous()
+
+
+def _band_groups(desc: NormalStencilDesc):
+    """Bands grouped by (coord, delta): consecutive channels by
+    construction, one contiguous coefficient slab per group."""
+    return tuple(tuple(g) for _, g in groupby(desc.bands, key=lambda b: (b.coord, b.delta)))
+
+
+def _epilogue(y, rin, out, x, xin, xout):
+    val = y if rin is None else rin - y
+    if xout is not None:
+        xout.copy_(x if xin is None else xin + x)
+    if out is None:
+        return val
+    out.copy_(val)
+    return out
+
+
+def stencil_apply_plain(
+    desc: NormalStencilDesc,
+    coef: torch.Tensor,
+    x: torch.Tensor,
+    rin: Optional[torch.Tensor] = None,
+    out: Optional[torch.Tensor] = None,
+    xin: Optional[torch.Tensor] = None,
+    xout: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """K1's plain version: the stride-grouped padded-slab apply.
+
+    coef (bs, NC, N), x (bs, N*m) point-major -> (AtA) x, with K1's
+    epilogue (see `stencil_apply`)."""
+    N, m = desc.grid_size, desc.n_mi
+    bs = x.shape[0]
+    X = x.reshape(bs, N, m).transpose(1, 2)  # (bs, m, N)
+    D = coef[:, : m * m].reshape(bs, m, m, N)
+    Y = torch.einsum("bijn,bjn->bin", D, X)
+    ys = [Y[:, i] for i in range(m)]
+    for grp in _band_groups(desc):
+        s = grp[0].stride
+        ch0 = grp[0].ch
+        G = coef[:, ch0 : ch0 + len(grp), : N - s]
+        cis = [_band_channels(b)[0] for b in grp]
+        cjs = [_band_channels(b)[1] for b in grp]
+        # forward: y_ci[p] += g[p] * x_cj[p + s]
+        Pf = G * torch.stack([X[:, cj, s:] for cj in cjs], dim=1)
+        # backward: y_cj[p + s] += g[p] * x_ci[p]
+        Pb = G * torch.stack([X[:, ci, : N - s] for ci in cis], dim=1)
+        for ch in sorted(set(cis)):
+            acc = sum(Pf[:, r] for r, c in enumerate(cis) if c == ch)
+            ys[ch] = ys[ch] + torch.nn.functional.pad(acc, (0, s))
+        for ch in sorted(set(cjs)):
+            acc = sum(Pb[:, r] for r, c in enumerate(cjs) if c == ch)
+            ys[ch] = ys[ch] + torch.nn.functional.pad(acc, (s, 0))
+    y = torch.stack(ys, dim=2).reshape(bs, -1)
+    return _epilogue(y, rin, out, x, xin, xout)
+
+
+_BANDS: Dict[Tuple[NormalStencilDesc, str], torch.Tensor] = {}
+
+
+def band_table(desc: NormalStencilDesc, device) -> torch.Tensor:
+    """(n_bands, 4) int32 table (channel, stride, ci, cj) on `device`."""
+    key = (desc, str(device))
+    t = _BANDS.get(key)
+    if t is None:
+        rows = [(b.ch, b.stride) + _band_channels(b) for b in desc.bands]
+        t = torch.tensor(rows, dtype=torch.int32, device=device).reshape(-1, 4)
+        _BANDS[key] = t
+    return t
+
+
+def stencil_apply(
+    desc: NormalStencilDesc,
+    coef: torch.Tensor,
+    x: torch.Tensor,
+    rin: Optional[torch.Tensor] = None,
+    out: Optional[torch.Tensor] = None,
+    xin: Optional[torch.Tensor] = None,
+    xout: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """y = (AtA) x for a batch: coef (bs, NC, N), x (bs, N*m) point-major.
+
+    Epilogue: returns rin - y when `rin` is given, else y (written into `out`
+    when given, which may be rin itself); with `xout` also writes
+    xout = xin + x (xin None reads as zero; xout may be xin itself).
+
+    CUDA tensors launch kernel K1; CPU tensors run the plain version."""
+    if coef.is_cuda:
+        return _stencil_apply_k1(desc, coef, x, rin, out, xin, xout)
+    if coef.device.type != "cpu":
+        raise ValueError(f"stencil_apply: unsupported device {coef.device}")
+    return stencil_apply_plain(desc, coef, x, rin, out, xin, xout)
+
+
+_K1_FN = {torch.float32: "k1_stencil_apply_f32", torch.float64: "k1_stencil_apply_f64"}
+
+
+def _stencil_apply_k1(desc, coef, x, rin, out, xin, xout):
+    bs, NC, N = coef.shape
+    m = desc.n_mi
+    if (NC, N) != (desc.n_channels, desc.grid_size) or tuple(x.shape) != (bs, N * m):
+        raise ValueError(
+            f"stencil_apply: coef {tuple(coef.shape)} / x {tuple(x.shape)} do not "
+            f"match the descriptor (NC={desc.n_channels}, N={desc.grid_size}, m={m})"
+        )
+    fn = _K1_FN.get(coef.dtype)
+    if fn is None:
+        raise ValueError(f"stencil_apply: K1 takes float32/float64, got {coef.dtype}")
+    if out is None:
+        out = torch.empty_like(x)
+    for t in (rin, out, xin, xout):
+        if t is not None and (t.dtype != coef.dtype or tuple(t.shape) != tuple(x.shape)):
+            raise ValueError("stencil_apply: epilogue operand dtype/shape mismatch")
+    for t in (out, xout):
+        if t is not None and t.data_ptr() == x.data_ptr():
+            raise ValueError("stencil_apply: outputs must not alias x (read at neighbours)")
+    bands = band_table(desc, coef.device)
+    _cuda.require_cuda(coef, x, rin, out, xin, xout, bands)
+    lib = _cuda.library("stencil_apply")
+    code = getattr(lib, fn)(
+        coef.data_ptr(), x.data_ptr(), bands.data_ptr(), len(desc.bands), m, N, NC, bs,
+        _cuda.ptr(rin), out.data_ptr(), _cuda.ptr(xin), _cuda.ptr(xout),
+        _cuda.stream_ptr(coef.device),
+    )
+    _cuda.check("stencil_apply", "k1_stencil_apply", code)
+    return out
