@@ -7,19 +7,28 @@ holds each hand-written CUDA kernel against its plain PyTorch version:
      builds the kernels (one nvcc per source, in parallel);
   2. kernels vs plain at the GL fine-level and level-1 shapes (bs 32):
      K1 f32/f64 and its epilogue, K2 and its epilogue, 4-step smoothing
-     passes (x0 zero / nonzero) with the emitted residual; median time per
-     launch over 20 launches (CUDA events), beside the plain version and a
-     single PyTorch call computing the same function (K1: a CSR sparse
-     product; K2: one bmm);
+     passes (x0 zero / nonzero) with the emitted residual; on the operators
+     of the bf16 storage modes (mg_precond_dtype) K3 (factored W) and its
+     epilogue, the factored 4-step passes, K1 with bf16 stencil fields and
+     K2 with a bf16 inverse; median time per launch over 20 launches (CUDA
+     events), beside the plain version and a PyTorch yardstick computing
+     the same function (K1: a CSR sparse product; K2: one bmm; K3: two bmm
+     on an f32 copy of W, as no single call computes W (W^T r));
   3. layer step at the production config "b30c4rm" (bs 32, (8, 32, 32),
      n_grid 3): forward + IFT backward of sum(u0^2); step time over 5 runs
      on perturbed inputs; FGMRES iterations and rel_rnorm (must be
      <= 3.1e-3); every gradient finite; a torch.profiler capture must show
-     both kernels;
-  4. trainer: 3 Adam steps of GLDiscovery.loss_fn at the GLConfig defaults
-     on GL data generated into data/; launch counts of this run are the
-     ones reported;
-  5. one JSON line {"kernels": [...]} with each kernel's numbers, then
+     K1 and K2;
+  4. layer step "b30c4rmw": the same with mg_precond_dtype='bf16_factored';
+     the same bar, and the profile must show K1 and K3 and no K2 (no level
+     fell back to the f32 inverse);
+  5. one forward of b30c4rm with mg_precond_dtype='bf16': finite u0, both
+     bf16-operand variants (K1, K2) launched; rel_rnorm is printed with no
+     bar (the mode is quality-fatal at GL scale);
+  6. trainer: 3 Adam steps of GLDiscovery.loss_fn at the GLConfig defaults
+     on GL data generated into data/;
+  7. one JSON line {"kernels": [...]} with each kernel's numbers and the
+     launch counts of the run that drives it ("launches_in"), then
      {"ok": true, "device": {...}} as the last line.
 
 Any failure exits nonzero.  Imports nothing of JAX.
@@ -30,6 +39,7 @@ Run from the repository root:  python3 chip_smoke.py [--seed 0]
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -136,9 +146,19 @@ def phase_kernels(layer, hier, values, dev, seed):
     """Phase 2: every kernel against its plain version at the GL shapes."""
     from mech_nn_discovery_pde_torch.ops import fused_smoother as fs
     from mech_nn_discovery_pde_torch.ops import normal_stencil as ns
+    from mech_nn_discovery_pde_torch.solvers.multigrid import MultigridSolver
 
     mg = layer.mg_solver
     g = torch.Generator(device=dev).manual_seed(seed + 1)
+    # solvers of the bf16 storage modes on the same hierarchy, for their
+    # stored operators (W = L^-T in bf16; bf16 stencil fields and inverse)
+    stored = {}
+    for mode in ("bf16_factored", "bf16"):
+        cfg = dataclasses.replace(mg.config, mg_precond_dtype=mode)
+        stored[mode] = MultigridSolver(
+            bs=mg.bs, order=mg.order, n_ind_dim=mg.n_ind_dim, n_iv=mg.n_iv,
+            init_index_mi_list=mg.init_index_mi_list, coord_dims=mg.dim_list[0],
+            downsample_first=mg.downsample_first, n_grid=mg.n_grid, config=cfg, device=dev)
     report = {}
     for k in range(mg.n_grid - 1):
         lvl = hier["levels"][k]
@@ -195,6 +215,40 @@ def phase_kernels(layer, hier, values, dev, seed):
         check(f"emitted residual vs b - A x (level {k})", rel_err(rs_k, r_true), 1e-4)
         torch.cuda.synchronize()
 
+        # ---- bf16 storage modes: K3 on W, K1 on bf16 fields, K2 on a bf16 B^-1
+        vk = values if k == 0 else lvl["values"]
+        lw = stored["bf16_factored"]._level_precond_data(k, vk)
+        lb = stored["bf16"]._level_precond_data(k, vk)
+        W, coef16, binv16 = lw["binv"], lb["coef"], lb["binv"]
+        if not W.dtype == coef16.dtype == binv16.dtype == torch.bfloat16:
+            raise AssertionError(f"stored operators not bf16: {W.dtype}, {coef16.dtype}, "
+                                 f"{binv16.dtype}")
+        t3_k = fs.factored_block_apply(W, x, nt)
+        t3_p = fs.factored_block_apply_plain(W, x, nt)
+        check(f"K3 factored apply (level {k})", rel_err(t3_k, t3_p), 1e-5)
+        d_k, d_p = b.clone(), b.clone()
+        fs.factored_block_apply(W, x, nt, d=d_k, c1=c1, c2=c2)
+        fs.factored_block_apply_plain(W, x, nt, d=d_p, c1=c1, c2=c2)
+        check(f"K3 Chebyshev epilogue (level {k})", rel_err(d_k, d_p), 1e-5)
+        sched_w = fs.chebyshev_schedule(lw["lmax"], ratio, 4)
+        for x0_zero in (True, False):
+            xs_k, rs_k = fs.chebyshev_smooth(desc, nt, lw["coef"], W, b, x0, sched_w, 4,
+                                             x0_zero, factored=True)
+            xs_p, rs_p = fs.chebyshev_smooth_plain(desc, nt, lw["coef"], W, b, x0, lw["lmax"],
+                                                   ratio, 4, x0_zero, factored=True)
+            check(f"factored pass x0_zero={x0_zero} (level {k})", rel_err(xs_k, xs_p), 1e-4)
+            check(f"factored emitted residual x0_zero={x0_zero} (level {k})",
+                  rel_err(rs_k, rs_p), 1e-4)
+        r_true = ns.stencil_apply_plain(desc, lw["coef"], xs_k, rin=b)
+        check(f"factored emitted residual vs b - A x (level {k})", rel_err(rs_k, r_true), 1e-4)
+        y16_k = ns.stencil_apply(desc, coef16, x)
+        y16_p = ns.stencil_apply_plain(desc, coef16, x)
+        check(f"K1 bf16-field apply (level {k})", rel_err(y16_k, y16_p), 1e-5)
+        t16_k = fs.block_apply(binv16, x, nt)
+        t16_p = fs.block_apply_plain(binv16, x, nt)
+        check(f"K2 bf16-inverse apply (level {k})", rel_err(t16_k, t16_p), 1e-5)
+        torch.cuda.synchronize()
+
         # ---- times per launch (level 0 enters the report)
         t_k1 = time_ms(lambda: ns.stencil_apply(desc, coef, x, out=y_k))
         t_k1p = time_ms(lambda: ns.stencil_apply_plain(desc, coef, x))
@@ -216,11 +270,47 @@ def phase_kernels(layer, hier, values, dev, seed):
         log(f"  K1 f32 {t_k1:.4f} ms (plain {t_k1p:.4f}, CSR sparse.mm {t_k1lib:.4f}, "
             f"bound {k1_bound:.4f}); K1 f64 {t_k1_64:.4f} ms; K2 {t_k2:.4f} ms "
             f"(plain {t_k2p:.4f}, bmm {t_k2lib:.4f}, bound {k2_bound:.4f})")
-        if k == 0:
-            report["k1"] = dict(max_abs_err=abs_err(y_k, y_p), ms=t_k1, plain_ms=t_k1p,
-                                bound_ms=k1_bound, bound_by=k1_by, library_ms=t_k1lib)
-            report["k2"] = dict(max_abs_err=abs_err(t_k, t_p), ms=t_k2, plain_ms=t_k2p,
-                                bound_ms=k2_bound, bound_by=k2_by, library_ms=t_k2lib)
+
+        # bf16 operands: stored values are 2 bytes, vectors 4; the yardsticks
+        # take f32 copies of the stored values (same function)
+        t_k3 = time_ms(lambda: fs.factored_block_apply(W, x, nt, d=t3_k))
+        t_k3p = time_ms(lambda: fs.factored_block_apply_plain(W, x, nt))
+        W2 = W.float().reshape(bs * S, bw, bw)
+        check(f"two-bmm yardstick vs K3 (level {k})", rel_err(
+            fs.line_blocks_to_vec(torch.bmm(W2, torch.bmm(W2.transpose(1, 2), rb)).reshape(
+                bs, S, bw), nt, m), t3_k), 1e-5)
+        t_k3lib = time_ms(lambda: torch.bmm(W2, torch.bmm(W2.transpose(1, 2), rb)))
+        del W2
+        t_k1b = time_ms(lambda: ns.stencil_apply(desc, coef16, x, out=y16_k))
+        t_k1bp = time_ms(lambda: ns.stencil_apply_plain(desc, coef16, x))
+        A_csr = stencil_csr(desc, coef16.float())
+        t_k1blib = time_ms(lambda: torch.sparse.mm(A_csr, xcol))
+        del A_csr
+        t_k2b = time_ms(lambda: fs.block_apply(binv16, x, nt, d=t16_k))
+        t_k2bp = time_ms(lambda: fs.block_apply_plain(binv16, x, nt))
+        B16 = binv16.float().reshape(bs * S, bw, bw)
+        t_k2blib = time_ms(lambda: torch.bmm(B16, rb))
+        del B16
+        vec_bytes = 4 * 2 * bs * N * m
+        k3_bound, k3_by = bound(2 * bs * S * bw * bw + vec_bytes, 4 * bs * S * bw * bw)
+        k1b_bound, k1b_by = bound(2 * NC * N * bs + vec_bytes, 2 * (m * m + 2 * nb) * N * bs)
+        k2b_bound, k2b_by = bound(2 * bs * S * bw * bw + vec_bytes, 2 * bs * S * bw * bw)
+        log(f"  K3 {t_k3:.4f} ms (plain {t_k3p:.4f}, two bmm {t_k3lib:.4f}, bound "
+            f"{k3_bound:.4f}); K1 bf16 {t_k1b:.4f} ms (plain {t_k1bp:.4f}, CSR {t_k1blib:.4f}, "
+            f"bound {k1b_bound:.4f}); K2 bf16 {t_k2b:.4f} ms (plain {t_k2bp:.4f}, bmm "
+            f"{t_k2blib:.4f}, bound {k2b_bound:.4f})")
+        rows = {
+            "k1": (abs_err(y_k, y_p), t_k1, t_k1p, k1_bound, k1_by, t_k1lib),
+            "k2": (abs_err(t_k, t_p), t_k2, t_k2p, k2_bound, k2_by, t_k2lib),
+            "k3": (abs_err(t3_k, t3_p), t_k3, t_k3p, k3_bound, k3_by, t_k3lib),
+            "k1_bf16": (abs_err(y16_k, y16_p), t_k1b, t_k1bp, k1b_bound, k1b_by, t_k1blib),
+            "k2_bf16": (abs_err(t16_k, t16_p), t_k2b, t_k2bp, k2b_bound, k2b_by, t_k2blib),
+        }
+        if k == 0:  # level 0 enters the report
+            for key, (err, ms, plain, bnd, by, lib) in rows.items():
+                report[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
+                                   bound_by=by, library_ms=lib)
+        del lw, lb, W, coef16, binv16
     return report
 
 
@@ -241,7 +331,8 @@ def kernel_counts(prof):
     """Launch counts of the port's kernels in a trace, the device's busy time
     (microseconds: the union of the work's intervals, so overlapping
     streams count once) and device time by name."""
-    names = {"k1_stencil_apply": 0, "k2_line_block_apply": 0}
+    names = {"k1_stencil_apply": 0, "k2_line_block_apply": 0,
+             "k3_factored_line_block_apply": 0}
     by_name = {}
     spans = []
     for e in device_events(prof):
@@ -259,25 +350,41 @@ def kernel_counts(prof):
     return names, busy_us, by_name
 
 
-def phase_layer(seed, dev, bs=32, dims=(8, 32, 32), n_grid=3):
-    """Phase 3: the b30c4rm layer step, forward + IFT backward."""
+# the layer step's kernel of the time-line block apply, by storage mode; the
+# other block kernel must not launch
+BLOCK_KERNEL = {"f32": "k2_line_block_apply", "bf16_factored": "k3_factored_line_block_apply"}
+
+
+def b30c4rm_layer(dev, precond="f32", bs=32, dims=(8, 32, 32), n_grid=3):
+    """The production GL layer "b30c4rm" (bench.py:119-129) with the given
+    stored-preconditioner dtype."""
     from mech_nn_discovery_pde_torch.config import PDEConfig
     from mech_nn_discovery_pde_torch.discovery.ginzburg_landau import GLDiscovery
     from mech_nn_discovery_pde_torch.layers.multigrid import MultigridLayer
-    from mech_nn_discovery_pde_torch.ops import _cuda
 
     cfg = PDEConfig(
         precision="f32_ir", mg_solve_dtype="f32",
         mg_smoother_steps_pre=4, mg_smoother_steps_post=4,
         mg_fgmres_max_iter_forward=30, mg_fgmres_max_iter_backward=30,
         mg_smoother_residual=True, mg_fused_matvec=True, return_solve_stats=True,
+        mg_precond_dtype=precond,
     )
+    return MultigridLayer(bs=bs, coord_dims=dims, order=2, n_ind_dim=1, n_iv=1,
+                          init_index_mi_list=GLDiscovery.IV_LIST, solver_dbl=True,
+                          n_grid=n_grid, downsample_first=False, config=cfg, device=dev)
+
+
+def phase_layer(seed, dev, precond="f32", bs=32, dims=(8, 32, 32)):
+    """Phases 3 and 4: the b30c4rm layer step (b30c4rmw with
+    precond='bf16_factored'), forward + IFT backward.  Returns the launch
+    counts of one step."""
+    from mech_nn_discovery_pde_torch.ops import _cuda
+
     t0 = time.perf_counter()
-    layer = MultigridLayer(bs=bs, coord_dims=dims, order=2, n_ind_dim=1, n_iv=1,
-                           init_index_mi_list=GLDiscovery.IV_LIST, solver_dbl=True,
-                           n_grid=n_grid, downsample_first=False, config=cfg, device=dev)
+    layer = b30c4rm_layer(dev, precond, bs, dims)
     (c0, r0, i0), steps = bench_inputs(layer, bs, dims, seed, dev)
-    log(f"layer built in {time.perf_counter() - t0:.2f} s: {layer.system.describe()}")
+    log(f"layer ({precond} preconditioner storage) built in {time.perf_counter() - t0:.2f} s: "
+        f"{layer.system.describe()}")
 
     def step(c):
         c = c.clone().requires_grad_(True)
@@ -299,6 +406,10 @@ def phase_layer(seed, dev, bs=32, dims=(8, 32, 32), n_grid=3):
     rel = stats["rel_rnorm"]
     log(f"layer step launches {counts}; forward FGMRES iters {sorted(set(its))}, "
         f"rel_rnorm max {float(rel.max()):.4e} mean {float(rel.mean()):.4e}")
+    block = BLOCK_KERNEL[precond]
+    stray = [n for n in counts if n.startswith(("k2_", "k3_")) and n != block]
+    if counts.get(block, 0) == 0 or stray:
+        raise AssertionError(f"{precond} layer step: block applies {counts}, want only {block}")
     for name, gr in zip(("coeffs", "rhs", "iv"), grads):
         if not bool(torch.isfinite(gr).all()):
             raise AssertionError(f"non-finite gradient w.r.t. {name}")
@@ -328,13 +439,43 @@ def phase_layer(seed, dev, bs=32, dims=(8, 32, 32), n_grid=3):
     for name, (us, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
         log(f"  {us / 1e3:10.3f} ms  x{c:6d}  {name[:90]}")
     for n, c in names.items():
-        if c == 0:
+        want = n in ("k1_stencil_apply", block)
+        if want and c == 0:
             raise AssertionError(f"profiler shows no launch of {n} in the layer step")
-    return layer
+        if not want and c != 0:
+            raise AssertionError(f"profiler shows {c} launches of {n} in the {precond} layer step")
+    return counts
+
+
+def phase_bf16_forward(seed, dev, bs=32, dims=(8, 32, 32)):
+    """Phase 5: one forward of b30c4rm with all-bf16 preconditioner storage.
+    Returns the launch counts of that forward."""
+    from mech_nn_discovery_pde_torch.ops import _cuda
+
+    layer = b30c4rm_layer(dev, "bf16", bs, dims)
+    (c0, r0, i0), steps = bench_inputs(layer, bs, dims, seed, dev)
+    torch.cuda.synchronize()
+    _cuda.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        u0, _, stats = layer(c0, r0, i0, steps)
+    torch.cuda.synchronize()
+    counts = dict(_cuda.LAUNCHES)
+    rel = stats["rel_rnorm"]
+    log(f"bf16 forward {time.perf_counter() - t0:.3f} s: launches {counts}; FGMRES iters "
+        f"{sorted(set(stats['iters'].tolist()))}, rel_rnorm max {float(rel.max()):.4e} "
+        f"mean {float(rel.mean()):.4e} (no bar: quality-fatal at GL scale)")
+    if not bool(torch.isfinite(u0).all()):
+        raise AssertionError("bf16 forward: non-finite u0")
+    for n in ("k1_stencil_apply_bf16", "k2_line_block_apply_bf16"):
+        if counts.get(n, 0) == 0:
+            raise AssertionError(f"bf16 forward did not launch {n}")
+    return counts
 
 
 def phase_trainer(dev, cfg=None):
-    """Phase 4: 3 Adam steps of the GL discovery loss at GLConfig defaults."""
+    """Phase 6: 3 Adam steps of the GL discovery loss at GLConfig defaults.
+    Returns the launch counts of the 3 steps."""
     from mech_nn_discovery_pde_torch.data.datasets import PatchLoader, ReactDiffDataset
     from mech_nn_discovery_pde_torch.discovery.common import make_update
     from mech_nn_discovery_pde_torch.discovery.ginzburg_landau import GLConfig, GLDiscovery
@@ -411,21 +552,30 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase_layer(args.seed, dev)
+    counts_w = phase_layer(args.seed, dev, precond="bf16_factored")
+    torch.cuda.empty_cache()
+    counts_b = phase_bf16_forward(args.seed, dev)
+    torch.cuda.empty_cache()
     counts = phase_trainer(dev)
 
-    kernels = [
-        dict(name="k1_stencil_apply", route="cuda",
-             source="mech_nn_discovery_pde_torch/csrc/stencil_apply.cu",
-             replaces="mech_nn_discovery_pde_tpu/ops/normal_stencil.py:404",
-             launches=counts.get("k1_stencil_apply", 0), **report["k1"]),
-        dict(name="k2_line_block_apply", route="cuda",
-             source="mech_nn_discovery_pde_torch/csrc/line_block.cu",
-             replaces="mech_nn_discovery_pde_tpu/ops/fused_smoother.py:128",
-             launches=counts.get("k2_line_block_apply", 0), **report["k2"]),
+    stencil = "mech_nn_discovery_pde_torch/csrc/stencil_apply.cu"
+    line = "mech_nn_discovery_pde_torch/csrc/line_block.cu"
+    tpu_fs = "mech_nn_discovery_pde_tpu/ops/fused_smoother.py"
+    trainer, step_w, fwd_b = "GL trainer, 3 steps", "b30c4rmw layer step", "b30c4rm bf16 forward"
+    kernels = [  # (name, source, TPU kernel, launch counts of its path, key)
+        ("k1_stencil_apply", stencil, "mech_nn_discovery_pde_tpu/ops/normal_stencil.py:404",
+         trainer, counts, "k1"),
+        ("k2_line_block_apply", line, f"{tpu_fs}:128", trainer, counts, "k2"),
+        ("k3_factored_line_block_apply", line, f"{tpu_fs}:104", step_w, counts_w, "k3"),
+        ("k1_stencil_apply_bf16", stencil, f"{tpu_fs}:51", fwd_b, counts_b, "k1_bf16"),
+        ("k2_line_block_apply_bf16", line, f"{tpu_fs}:87", fwd_b, counts_b, "k2_bf16"),
     ]
+    kernels = [dict(name=n, route="cuda", source=src, replaces=rep, launches=c.get(n, 0),
+                    launches_in=path, **report[key])
+               for n, src, rep, path, c, key in kernels]
     for kd in kernels:
         if kd["launches"] == 0:
-            raise AssertionError(f"{kd['name']} was not launched on the main path")
+            raise AssertionError(f"{kd['name']} was not launched in the {kd['launches_in']}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

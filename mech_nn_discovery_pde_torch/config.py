@@ -68,8 +68,17 @@ class PDEConfig:
     # smoother block structure: 'line' (time-line blocks) or 'point' (not
     # ported yet)
     mg_block_smoother: str = "line"
-    # stored preconditioner dtype: 'f32' (ported) or 'bf16' /
-    # 'bf16_factored' (not ported yet)
+    # dtype of the STORED preconditioner operators: 'f32', 'bf16' or
+    # 'bf16_factored'.  Assembly, factorization, V-cycle vectors and the
+    # lmax power iteration stay f32 in every mode.
+    # 'bf16' rounds the line-block inverses, the stencil fields and the
+    # coarse inverse to bf16.  It is quality-fatal at GL scale: entrywise
+    # rounding of the ill-conditioned block inverses makes many of them
+    # indefinite, and bf16 stencil fields alone cost much of the quality.
+    # 'bf16_factored' stores the PSD square-root factor W = L^-T of each
+    # block inverse (B^-1 = W W^T) in bf16 and applies W (W^T r) (kernel
+    # K3): round(W) round(W)^T stays PSD by construction, so quality stays
+    # at the f32 level; the stencil fields and the coarse inverse stay f32.
     mg_precond_dtype: str = "f32"
     # outer FGMRES dtype: 'solver', 'f32' or 'auto' (-> 'solver', see above)
     mg_solve_dtype: str = "auto"

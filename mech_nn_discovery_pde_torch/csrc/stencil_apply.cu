@@ -27,13 +27,21 @@
 // only its own point there); neither may alias x, which is read at
 // neighbouring points.
 //
+// Stored-operand types (the JAX package's mg_precond_dtype): coef is f32 or
+// f64 with vectors of the same type, or bf16 with f32 vectors ('bf16'
+// mode).  A bf16 coefficient is widened to f32 in-register as it is loaded,
+// and every sum is taken in the vector type, as the TPU kernel upcasts its
+// stored operands (fused_smoother.py `_fused_chebyshev_kernel`).
+//
 // Bound on an H100: bytes.  Per apply it must read coef (NC*N values) and x
-// and write y, 4*(NC + 2m)*N bytes per sample in f32, at ~2*(m*m + 2*nb)
-// flops per point: far below the card's flop/byte ratio.  The design reads
-// each coefficient at p coalesced across threads (channel-major layout);
-// the backward terms re-read coef at p - s, which a neighbouring block has
-// just brought into L2.  Tiling for speed is later work.
+// and write y, (NC*sizeof(coef) + 2*m*sizeof(x))*N bytes per sample, at
+// ~2*(m*m + 2*nb) flops per point: far below the card's flop/byte ratio.
+// The design reads each coefficient at p coalesced across threads
+// (channel-major layout); the backward terms re-read coef at p - s, which a
+// neighbouring block has just brought into L2.  Tiling for speed is later
+// work.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -41,8 +49,13 @@ namespace {
 constexpr int kMaxM = 16;
 constexpr int kThreads = 256;
 
-template <typename T>
-__global__ void k1_stencil_apply(const T* coef, const T* x, const int* bands,
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ double widen(double v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// TC: stored coefficient type; T: vector and accumulation type
+template <typename TC, typename T>
+__global__ void k1_stencil_apply(const TC* coef, const T* x, const int* bands,
                                  int nb, int m, int N, int NC, const T* rin,
                                  T* out, const T* xin, T* xout) {
   extern __shared__ int sb[];
@@ -52,7 +65,7 @@ __global__ void k1_stencil_apply(const T* coef, const T* x, const int* bands,
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= N) return;
   const size_t b = blockIdx.y;
-  const T* cb = coef + b * (size_t)NC * N;
+  const TC* cb = coef + b * (size_t)NC * N;
   const T* xb = x + b * (size_t)N * m;
 
   T xp[kMaxM];
@@ -60,15 +73,15 @@ __global__ void k1_stencil_apply(const T* coef, const T* x, const int* bands,
   for (int j = 0; j < m; ++j) xp[j] = xb[(size_t)p * m + j];
   for (int i = 0; i < m; ++i) {
     T acc = T(0);
-    for (int j = 0; j < m; ++j) acc += cb[(size_t)(i * m + j) * N + p] * xp[j];
+    for (int j = 0; j < m; ++j) acc += T(widen(cb[(size_t)(i * m + j) * N + p])) * xp[j];
     y[i] = acc;
   }
   for (int k = 0; k < nb; ++k) {
     const int ch = sb[4 * k], s = sb[4 * k + 1];
     const int ci = sb[4 * k + 2], cj = sb[4 * k + 3];
-    const T* g = cb + (size_t)ch * N;
-    if (p + s < N) y[ci] += g[p] * xb[(size_t)(p + s) * m + cj];
-    if (p >= s) y[cj] += g[p - s] * xb[(size_t)(p - s) * m + ci];
+    const TC* g = cb + (size_t)ch * N;
+    if (p + s < N) y[ci] += T(widen(g[p])) * xb[(size_t)(p + s) * m + cj];
+    if (p >= s) y[cj] += T(widen(g[p - s])) * xb[(size_t)(p - s) * m + ci];
   }
 
   const size_t o = (b * (size_t)N + p) * m;
@@ -78,15 +91,15 @@ __global__ void k1_stencil_apply(const T* coef, const T* x, const int* bands,
   }
 }
 
-template <typename T>
-int launch(const T* coef, const T* x, const int* bands, int nb, int m, int N,
+template <typename TC, typename T>
+int launch(const TC* coef, const T* x, const int* bands, int nb, int m, int N,
            int NC, int bs, const T* rin, T* out, const T* xin, T* xout,
            cudaStream_t stream) {
   if (m > kMaxM || m < 1 || N < 1 || bs < 1 || nb < 0) return (int)cudaErrorInvalidValue;
   dim3 grid((N + kThreads - 1) / kThreads, bs);
   size_t smem = sizeof(int) * 4 * (size_t)(nb > 0 ? nb : 1);
-  k1_stencil_apply<T><<<grid, kThreads, smem, stream>>>(coef, x, bands, nb, m, N, NC,
-                                                       rin, out, xin, xout);
+  k1_stencil_apply<TC, T><<<grid, kThreads, smem, stream>>>(coef, x, bands, nb, m, N,
+                                                           NC, rin, out, xin, xout);
   return (int)cudaGetLastError();
 }
 
@@ -98,16 +111,25 @@ int k1_stencil_apply_f32(const float* coef, const float* x, const int* bands,
                          int nb, int m, int N, int NC, int bs, const float* rin,
                          float* out, const float* xin, float* xout,
                          void* stream) {
-  return launch<float>(coef, x, bands, nb, m, N, NC, bs, rin, out, xin, xout,
-                       (cudaStream_t)stream);
+  return launch<float, float>(coef, x, bands, nb, m, N, NC, bs, rin, out, xin, xout,
+                              (cudaStream_t)stream);
 }
 
 int k1_stencil_apply_f64(const double* coef, const double* x, const int* bands,
                          int nb, int m, int N, int NC, int bs, const double* rin,
                          double* out, const double* xin, double* xout,
                          void* stream) {
-  return launch<double>(coef, x, bands, nb, m, N, NC, bs, rin, out, xin, xout,
-                        (cudaStream_t)stream);
+  return launch<double, double>(coef, x, bands, nb, m, N, NC, bs, rin, out, xin, xout,
+                                (cudaStream_t)stream);
+}
+
+// bf16 coefficients, f32 vectors
+int k1_stencil_apply_bf16(const __nv_bfloat16* coef, const float* x,
+                          const int* bands, int nb, int m, int N, int NC, int bs,
+                          const float* rin, float* out, const float* xin,
+                          float* xout, void* stream) {
+  return launch<__nv_bfloat16, float>(coef, x, bands, nb, m, N, NC, bs, rin, out, xin,
+                                      xout, (cudaStream_t)stream);
 }
 
 const char* k1_error_string(int code) {

@@ -32,6 +32,7 @@ NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC"]
 
 # library name -> source file; each library exports <kernel>_<dtype> launchers
+# (<dtype> names the stored operand; bf16 launchers take f32 vectors)
 SOURCES = {"stencil_apply": "stencil_apply.cu", "line_block": "line_block.cu"}
 
 LAUNCHES: collections.Counter = collections.Counter()
@@ -43,9 +44,12 @@ _SIGNATURES = {
     "stencil_apply": {
         "k1_stencil_apply_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
         "k1_stencil_apply_f64": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+        "k1_stencil_apply_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     },
     "line_block": {
         "k2_line_block_apply_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "k2_line_block_apply_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "k3_factored_line_block_apply_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
 }
 _ERROR_FN = {"stencil_apply": "k1_error_string", "line_block": "k2_error_string"}

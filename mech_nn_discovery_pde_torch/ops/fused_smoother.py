@@ -1,5 +1,6 @@
 """Chebyshev smoothing pass on the line-block-preconditioned normal operator,
-and kernel K2 (time-line block-Jacobi apply) that carries its block half.
+and kernels K2 and K3 (time-line block-Jacobi applies) that carry its block
+half.
 
 The TPU kernel `_fused_chebyshev_kernel`
 (mech_nn_discovery_pde_tpu/ops/fused_smoother.py) keeps a whole sample in
@@ -11,6 +12,11 @@ epilogues:
 
   K1 (ops/normal_stencil.stencil_apply):  x <- x + d,  r <- r - A d
   K2 (block_apply, csrc/line_block.cu):   d <- c1 d + c2 B^-1 r
+  K3 (factored_block_apply, same file):   d <- c1 d + c2 W (W^T r)
+
+K3 replaces K2 under mg_precond_dtype='bf16_factored', where the level
+stores the PSD square-root factor W = L^-T of B^-1 = W W^T in bfloat16 (the
+TPU kernel's `factored=True`, `_emit_factored_block_apply`).
 
 The recurrence is the JAX package's (`MultigridSolver._smooth` chebyshev
 branch and `_fused_chebyshev_kernel`): Chebyshev over [lmax/ratio, lmax],
@@ -19,10 +25,12 @@ r = b - A x is the recurrence's own invariant, returned at no extra cost.
 The per-step scalars c1, c2 depend only on lmax, so `chebyshev_schedule`
 computes them once per hierarchy level.
 
-Vectors are the flat point-major (bs, N*m) solver layout; the block inverse
-is (bs, S, bw, bw) row-major with block row i = ti*m + mi (bw = nt*m, S
-spatial lines).  On CUDA tensors both halves launch kernels; on CPU tensors
-they run their plain versions (`block_apply_plain`, `stencil_apply_plain`).
+Vectors are the flat point-major (bs, N*m) solver layout, float32; the
+block inverse (or W) is (bs, S, bw, bw) row-major with block row
+i = ti*m + mi (bw = nt*m, S spatial lines), float32 or bfloat16.  On CUDA
+tensors both halves launch kernels; on CPU tensors they run their plain
+versions (`block_apply_plain`, `factored_block_apply_plain`,
+`stencil_apply_plain`), which upcast a bfloat16 operand first.
 """
 
 from __future__ import annotations
@@ -50,6 +58,41 @@ def line_blocks_to_vec(z: torch.Tensor, nt: int, m: int) -> torch.Tensor:
     return z.reshape(bs, -1, nt, m).transpose(1, 2).reshape(bs, -1)
 
 
+def line_blocks_from_jax(arr, nt: int, m: int, layout: str) -> torch.Tensor:
+    """A JAX-package line-block preconditioner array (numpy) as the port's
+    (bs, S, bw, bw) row-major tensor, in its stored dtype.
+
+    layout "rows": the XLA path's (bs, S, bw, bw); "fused": the fused
+    smoother's column-major (bs, bw, m, nt, S) with
+    w[j][mi, ti, s] = M_s[ti*m + mi, j].  numpy has no bfloat16 of its own:
+    a bfloat16 array (JAX's ml_dtypes type) goes through float32, exactly."""
+    bw = nt * m
+    bf16 = arr.dtype.name == "bfloat16"
+    t = torch.tensor(arr.astype("float32") if bf16 else arr)
+    if layout == "fused":
+        if t.ndim != 5 or tuple(t.shape[1:4]) != (bw, m, nt):
+            raise ValueError(f"fused layout wants (bs, {bw}, {m}, {nt}, S), got {tuple(t.shape)}")
+        t = t.permute(0, 4, 3, 2, 1).reshape(t.shape[0], t.shape[4], bw, bw)
+    elif layout != "rows":
+        raise ValueError(f"unknown layout {layout!r}; expected 'rows' or 'fused'")
+    if t.ndim != 4 or tuple(t.shape[2:]) != (bw, bw):
+        raise ValueError(f"want (bs, S, {bw}, {bw}) blocks, got {tuple(t.shape)}")
+    t = t.contiguous()
+    return t.to(torch.bfloat16) if bf16 else t
+
+
+def _epilogue(t, d, c1, c2):
+    """d = c1 d + c2 t (see `block_apply`)."""
+    if c2 is not None:
+        t = c2[:, None] * t
+    if c1 is not None:
+        t = t + c1[:, None] * d
+    if d is None:
+        return t
+    d.copy_(t)
+    return d
+
+
 def block_apply_plain(
     binv: torch.Tensor,
     r: torch.Tensor,
@@ -61,16 +104,26 @@ def block_apply_plain(
     """K2's plain version: one einsum over the line blocks, then the same
     epilogue as `block_apply`."""
     m = r.shape[1] // (nt * binv.shape[1])
-    t = torch.einsum("bsij,bsj->bsi", binv, line_vec_to_blocks(r, nt, m))
-    t = line_blocks_to_vec(t, nt, m)
-    if c2 is not None:
-        t = c2[:, None] * t
-    if c1 is not None:
-        t = t + c1[:, None] * d
-    if d is None:
-        return t
-    d.copy_(t)
-    return d
+    t = torch.einsum("bsij,bsj->bsi", binv.to(r.dtype), line_vec_to_blocks(r, nt, m))
+    return _epilogue(line_blocks_to_vec(t, nt, m), d, c1, c2)
+
+
+def factored_block_apply_plain(
+    w: torch.Tensor,
+    r: torch.Tensor,
+    nt: int,
+    d: Optional[torch.Tensor] = None,
+    c1: Optional[torch.Tensor] = None,
+    c2: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """K3's plain version: u = W^T r and t = W u over the line blocks with W
+    upcast to float32 (the JAX package's factored `_block_apply`), then the
+    same epilogue as `block_apply`."""
+    m = r.shape[1] // (nt * w.shape[1])
+    wf = w.to(r.dtype)
+    u = torch.einsum("bsij,bsi->bsj", wf, line_vec_to_blocks(r, nt, m))
+    t = torch.einsum("bsij,bsj->bsi", wf, u)
+    return _epilogue(line_blocks_to_vec(t, nt, m), d, c1, c2)
 
 
 def block_apply(
@@ -83,41 +136,76 @@ def block_apply(
 ) -> torch.Tensor:
     """t = B^-1 r per time-line block, batched over (sample, line).
 
-    binv (bs, S, bw, bw); r (bs, N*m) point-major.  With `d` given, writes
-    d = c1 d + c2 t into d and returns it (c1 None reads as 0, and d is then
-    not read; c2 None as 1; both per-sample (bs,) tensors); else returns t.
-    CUDA tensors launch kernel K2; CPU tensors run the plain version."""
+    binv (bs, S, bw, bw) float32 or bfloat16; r (bs, N*m) point-major
+    float32.  With `d` given, writes d = c1 d + c2 t into d and returns it
+    (c1 None reads as 0, and d is then not read; c2 None as 1; both
+    per-sample (bs,) tensors); else returns t.  CUDA tensors launch kernel
+    K2; CPU tensors run the plain version."""
     if binv.is_cuda:
-        return _block_apply_k2(binv, r, nt, d, c1, c2)
+        launcher = _K2_FN.get(binv.dtype)
+        if launcher is None:
+            raise ValueError(f"block_apply: K2 takes a float32 or bfloat16 B^-1, got {binv.dtype}")
+        return _launch_line_block(launcher, binv, r, nt, d, c1, c2)
     if binv.device.type != "cpu":
         raise ValueError(f"block_apply: unsupported device {binv.device}")
     return block_apply_plain(binv, r, nt, d, c1, c2)
 
 
-def _block_apply_k2(binv, r, nt, d, c1, c2):
-    bs, S, bw, bw2 = binv.shape
+def factored_block_apply(
+    w: torch.Tensor,
+    r: torch.Tensor,
+    nt: int,
+    d: Optional[torch.Tensor] = None,
+    c1: Optional[torch.Tensor] = None,
+    c2: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """t = W (W^T r) = B^-1 r per time-line block, from the bfloat16 factor
+    W = L^-T of mg_precond_dtype='bf16_factored' (bs, S, bw, bw); same
+    vectors and epilogue as `block_apply`.  CUDA tensors launch kernel K3;
+    CPU tensors run the plain version."""
+    if w.is_cuda:
+        if w.dtype != torch.bfloat16:
+            raise ValueError(f"factored_block_apply: K3 takes a bfloat16 W, got {w.dtype}")
+        return _launch_line_block(_K3_FN, w, r, nt, d, c1, c2)
+    if w.device.type != "cpu":
+        raise ValueError(f"factored_block_apply: unsupported device {w.device}")
+    return factored_block_apply_plain(w, r, nt, d, c1, c2)
+
+
+# stored block dtype -> (launcher, launch-count name)
+_K2_FN = {
+    torch.float32: ("k2_line_block_apply_f32", "k2_line_block_apply"),
+    torch.bfloat16: ("k2_line_block_apply_bf16", "k2_line_block_apply_bf16"),
+}
+_K3_FN = ("k3_factored_line_block_apply_bf16", "k3_factored_line_block_apply")
+
+
+def _launch_line_block(launcher, blocks, r, nt, d, c1, c2):
+    """Check the operands of a csrc/line_block.cu kernel and launch it."""
+    fn, counted = launcher
+    bs, S, bw, bw2 = blocks.shape
     if bw != bw2 or bw % nt:
-        raise ValueError(f"block_apply: bad block shape {tuple(binv.shape)} for nt={nt}")
+        raise ValueError(f"{fn}: bad block shape {tuple(blocks.shape)} for nt={nt}")
     m = bw // nt
     if tuple(r.shape) != (bs, nt * S * m):
-        raise ValueError(f"block_apply: r {tuple(r.shape)} does not match binv")
-    for t in (binv, r, d, c1, c2):
+        raise ValueError(f"{fn}: r {tuple(r.shape)} does not match the blocks")
+    for t in (r, d, c1, c2):
         if t is not None and t.dtype != torch.float32:
-            raise ValueError("block_apply: K2 takes float32 operands")
+            raise ValueError(f"{fn}: vectors and coefficients must be float32")
     if d is None:
         d = torch.empty_like(r)
     elif tuple(d.shape) != tuple(r.shape) or d.data_ptr() == r.data_ptr():
-        raise ValueError("block_apply: d must match r's shape and not alias it")
+        raise ValueError(f"{fn}: d must match r's shape and not alias it")
     for c in (c1, c2):
         if c is not None and tuple(c.shape) != (bs,):
-            raise ValueError("block_apply: c1/c2 must be per-sample (bs,) tensors")
-    _cuda.require_cuda(binv, r, d, c1, c2)
+            raise ValueError(f"{fn}: c1/c2 must be per-sample (bs,) tensors")
+    _cuda.require_cuda(blocks, r, d, c1, c2)
     lib = _cuda.library("line_block")
-    code = lib.k2_line_block_apply_f32(
-        binv.data_ptr(), r.data_ptr(), d.data_ptr(), _cuda.ptr(c1), _cuda.ptr(c2),
-        m, nt, S, bs, _cuda.stream_ptr(binv.device),
+    code = getattr(lib, fn)(
+        blocks.data_ptr(), r.data_ptr(), d.data_ptr(), _cuda.ptr(c1), _cuda.ptr(c2),
+        m, nt, S, bs, _cuda.stream_ptr(blocks.device),
     )
-    _cuda.check("line_block", "k2_line_block_apply", code)
+    _cuda.check("line_block", counted, code)
     return d
 
 
@@ -140,12 +228,13 @@ def chebyshev_schedule(lmax: torch.Tensor, ratio: float, steps: int) -> torch.Te
 
 
 def chebyshev_smooth_plain(desc, nt, coef, binv, b, x, lmax, ratio: float, steps: int,
-                           x0_zero: bool = False):
+                           x0_zero: bool = False, factored: bool = False):
     """The smoothing pass's plain version: the JAX package's `_smooth`
     Chebyshev recurrence step by step on the plain applies (no fused
     epilogues, no precomputed schedule).  Returns (x, r = b - A x)."""
     A = lambda v: stencil_apply_plain(desc, coef, v)
-    Binv = lambda r: block_apply_plain(binv, r, nt)
+    block = factored_block_apply_plain if factored else block_apply_plain
+    Binv = lambda r: block(binv, r, nt)
     lmin = lmax / ratio
     theta = ((lmax + lmin) / 2.0)[:, None]
     delta = ((lmax - lmin) / 2.0)[:, None]
@@ -173,19 +262,22 @@ def chebyshev_smooth(
     sched: torch.Tensor,
     steps: int,
     x0_zero: bool = False,
+    factored: bool = False,
 ):
     """`steps` Chebyshev iterations on B^-1 AtA from x (ignored when
     x0_zero): returns (x, r) with r = b - A x maintained by the recurrence.
 
-    sched is `chebyshev_schedule(lmax, ratio, >= steps)`.  Neither b nor x
-    is written."""
+    binv holds B^-1 (`block_apply`), or with `factored` the factor W
+    (`factored_block_apply`).  sched is `chebyshev_schedule(lmax, ratio,
+    >= steps)`.  Neither b nor x is written."""
+    block = factored_block_apply if factored else block_apply
     if x0_zero:
         r, xcur = b, None
     else:
         r, xcur = stencil_apply(desc, coef, x, rin=b), x
     if steps == 0:
         return (torch.zeros_like(b) if xcur is None else xcur), r
-    d = block_apply(binv, r, nt, c2=sched[0, 1])
+    d = block(binv, r, nt, c2=sched[0, 1])
     xnew = torch.empty_like(b)
     rnew = torch.empty_like(b) if r is b else r
     for i in range(steps):
@@ -193,5 +285,5 @@ def chebyshev_smooth(
         stencil_apply(desc, coef, d, rin=r, out=rnew, xin=xcur, xout=xnew)
         r, xcur = rnew, xnew
         if i + 1 < steps:  # the last direction would go unused
-            block_apply(binv, r, nt, d=d, c1=sched[i + 1, 0], c2=sched[i + 1, 1])
+            block(binv, r, nt, d=d, c1=sched[i + 1, 0], c2=sched[i + 1, 1])
     return xcur, r

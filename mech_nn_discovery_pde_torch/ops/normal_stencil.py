@@ -21,14 +21,16 @@ directions.
 `stencil_apply` is the one entry point for y = (AtA) x.  On CUDA tensors it
 launches kernel K1 (csrc/stencil_apply.cu), which replaces the TPU kernel
 `_stencil_kernel_body` of mech_nn_discovery_pde_tpu/ops/normal_stencil.py;
-on CPU tensors it runs `stencil_apply_plain`, the stride-grouped padded
-apply of the JAX package (`normal_stencil_matvec_padded`) in the same
-layout.  Both carry the same epilogue (residual update, iterate update).
+on CPU tensors it runs `stencil_apply_plain`, the same gather form written
+as a few whole-tensor PyTorch gathers.  Both carry the same epilogue
+(residual update, iterate update).
+The stored fields may be bfloat16 (mg_precond_dtype='bf16') with float32
+vectors: K1 widens each coefficient in-register, the plain version upcasts
+the fields first; every sum is float32.
 """
 
 from __future__ import annotations
 
-from itertools import groupby
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -216,10 +218,31 @@ def build_normal_coef(
     return C.reshape(bs, vs.grid_size, desc.n_channels).transpose(1, 2).contiguous()
 
 
-def _band_groups(desc: NormalStencilDesc):
-    """Bands grouped by (coord, delta): consecutive channels by
-    construction, one contiguous coefficient slab per group."""
-    return tuple(tuple(g) for _, g in groupby(desc.bands, key=lambda b: (b.coord, b.delta)))
+_GATHER: Dict[Tuple[NormalStencilDesc, str], Tuple[torch.Tensor, ...]] = {}
+
+
+def _gather_tables(desc: NormalStencilDesc, device) -> Tuple[torch.Tensor, ...]:
+    """Index tables of the plain apply, on `device` (cached): per band k its
+    coefficient channel and channels ci, cj, and flat gather indices into
+    (rows, N + 1) tensors whose column N is zero: x[p + s_k, cj],
+    x[p - s_k, ci] and g_k[p - s_k] for every point p, column N where the
+    neighbour lies off the flat grid."""
+    key = (desc, str(device))
+    t = _GATHER.get(key)
+    if t is None:
+        N = desc.grid_size
+        p = torch.arange(N)
+        s = torch.tensor([b.stride for b in desc.bands])[:, None]
+        fwd = torch.where(p + s < N, p + s, N)
+        bwd = torch.where(p >= s, p - s, N)
+        ch = torch.tensor([b.ch for b in desc.bands])
+        ci = torch.tensor([_band_channels(b)[0] for b in desc.bands])
+        cj = torch.tensor([_band_channels(b)[1] for b in desc.bands])
+        rows = torch.arange(len(desc.bands))
+        flat = [(c[:, None] * (N + 1) + q).reshape(-1) for c, q in ((cj, fwd), (ci, bwd), (rows, bwd))]
+        t = tuple(a.to(device) for a in (ch, ci, cj, *flat))
+        _GATHER[key] = t
+    return t
 
 
 def _epilogue(y, rin, out, x, xin, xout):
@@ -241,33 +264,29 @@ def stencil_apply_plain(
     xin: Optional[torch.Tensor] = None,
     xout: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """K1's plain version: the stride-grouped padded-slab apply.
+    """K1's plain version: K1's gather form over all bands at once,
+      y[p, ci] += g_k[p] x[p + s_k, cj]   and   y[p, cj] += g_k[p - s_k] x[p - s_k, ci]
+    for every band k, a neighbour off the flat grid reading as zero.
 
     coef (bs, NC, N), x (bs, N*m) point-major -> (AtA) x, with K1's
     epilogue (see `stencil_apply`)."""
+    if coef.dtype == torch.bfloat16:
+        coef = coef.float()
     N, m = desc.grid_size, desc.n_mi
     bs = x.shape[0]
+    ch, ci, cj, x_fwd, x_bwd, g_bwd = _gather_tables(desc, coef.device)
+    nb = len(ch)
     X = x.reshape(bs, N, m).transpose(1, 2)  # (bs, m, N)
     D = coef[:, : m * m].reshape(bs, m, m, N)
-    Y = torch.einsum("bijn,bjn->bin", D, X)
-    ys = [Y[:, i] for i in range(m)]
-    for grp in _band_groups(desc):
-        s = grp[0].stride
-        ch0 = grp[0].ch
-        G = coef[:, ch0 : ch0 + len(grp), : N - s]
-        cis = [_band_channels(b)[0] for b in grp]
-        cjs = [_band_channels(b)[1] for b in grp]
-        # forward: y_ci[p] += g[p] * x_cj[p + s]
-        Pf = G * torch.stack([X[:, cj, s:] for cj in cjs], dim=1)
-        # backward: y_cj[p + s] += g[p] * x_ci[p]
-        Pb = G * torch.stack([X[:, ci, : N - s] for ci in cis], dim=1)
-        for ch in sorted(set(cis)):
-            acc = sum(Pf[:, r] for r, c in enumerate(cis) if c == ch)
-            ys[ch] = ys[ch] + torch.nn.functional.pad(acc, (0, s))
-        for ch in sorted(set(cjs)):
-            acc = sum(Pb[:, r] for r, c in enumerate(cjs) if c == ch)
-            ys[ch] = ys[ch] + torch.nn.functional.pad(acc, (s, 0))
-    y = torch.stack(ys, dim=2).reshape(bs, -1)
+    Y = (D * X[:, None]).sum(2)  # the dense offset-0 block
+    G = coef.index_select(1, ch)  # (bs, nb, N)
+    # column N of each row reads as zero
+    Xz = torch.cat([X, X.new_zeros(bs, m, 1)], dim=2).reshape(bs, -1)
+    Gz = torch.cat([G, G.new_zeros(bs, nb, 1)], dim=2).reshape(bs, -1)
+    take = lambda t, idx: t.index_select(1, idx).reshape(bs, nb, N)
+    Y.index_add_(1, ci, G * take(Xz, x_fwd))
+    Y.index_add_(1, cj, take(Gz, g_bwd) * take(Xz, x_bwd))
+    y = Y.transpose(1, 2).reshape(bs, -1)
     return _epilogue(y, rin, out, x, xin, xout)
 
 
@@ -294,7 +313,8 @@ def stencil_apply(
     xin: Optional[torch.Tensor] = None,
     xout: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """y = (AtA) x for a batch: coef (bs, NC, N), x (bs, N*m) point-major.
+    """y = (AtA) x for a batch: coef (bs, NC, N), x (bs, N*m) point-major;
+    coef float32/float64 with x of the same dtype, or bfloat16 with float32 x.
 
     Epilogue: returns rin - y when `rin` is given, else y (written into `out`
     when given, which may be rin itself); with `xout` also writes
@@ -308,7 +328,12 @@ def stencil_apply(
     return stencil_apply_plain(desc, coef, x, rin, out, xin, xout)
 
 
-_K1_FN = {torch.float32: "k1_stencil_apply_f32", torch.float64: "k1_stencil_apply_f64"}
+# (coef dtype, vector dtype) -> (launcher, launch-count name)
+_K1_FN = {
+    (torch.float32, torch.float32): ("k1_stencil_apply_f32", "k1_stencil_apply"),
+    (torch.float64, torch.float64): ("k1_stencil_apply_f64", "k1_stencil_apply"),
+    (torch.bfloat16, torch.float32): ("k1_stencil_apply_bf16", "k1_stencil_apply_bf16"),
+}
 
 
 def _stencil_apply_k1(desc, coef, x, rin, out, xin, xout):
@@ -319,13 +344,14 @@ def _stencil_apply_k1(desc, coef, x, rin, out, xin, xout):
             f"stencil_apply: coef {tuple(coef.shape)} / x {tuple(x.shape)} do not "
             f"match the descriptor (NC={desc.n_channels}, N={desc.grid_size}, m={m})"
         )
-    fn = _K1_FN.get(coef.dtype)
+    fn = _K1_FN.get((coef.dtype, x.dtype))
     if fn is None:
-        raise ValueError(f"stencil_apply: K1 takes float32/float64, got {coef.dtype}")
+        raise ValueError(f"stencil_apply: K1 takes coef/x float32/float32, float64/float64 "
+                         f"or bfloat16/float32, got {coef.dtype}/{x.dtype}")
     if out is None:
         out = torch.empty_like(x)
     for t in (rin, out, xin, xout):
-        if t is not None and (t.dtype != coef.dtype or tuple(t.shape) != tuple(x.shape)):
+        if t is not None and (t.dtype != x.dtype or tuple(t.shape) != tuple(x.shape)):
             raise ValueError("stencil_apply: epilogue operand dtype/shape mismatch")
     for t in (out, xout):
         if t is not None and t.data_ptr() == x.data_ptr():
@@ -333,10 +359,11 @@ def _stencil_apply_k1(desc, coef, x, rin, out, xin, xout):
     bands = band_table(desc, coef.device)
     _cuda.require_cuda(coef, x, rin, out, xin, xout, bands)
     lib = _cuda.library("stencil_apply")
-    code = getattr(lib, fn)(
+    launcher, counted = fn
+    code = getattr(lib, launcher)(
         coef.data_ptr(), x.data_ptr(), bands.data_ptr(), len(desc.bands), m, N, NC, bs,
         _cuda.ptr(rin), out.data_ptr(), _cuda.ptr(xin), _cuda.ptr(xout),
         _cuda.stream_ptr(coef.device),
     )
-    _cuda.check("stencil_apply", "k1_stencil_apply", code)
+    _cuda.check("stencil_apply", counted, code)
     return out

@@ -13,14 +13,18 @@ over a leading sample axis throughout:
 - coarsest level: dense assembled AtA, equilibrated, explicit Cholesky
   inverse built in 512-column chunks;
 - the preconditioner runs in float32; the outer flexible GMRES iterates in
-  the solve dtype.
+  the solve dtype;
+- storage (config.mg_precond_dtype): the stored operators are float32
+  ('f32'), all bfloat16 ('bf16': block inverses, stencil fields, coarse
+  inverse), or the block inverses' PSD square-root factors W = L^-T in
+  bfloat16 ('bf16_factored': B^-1 r = W (W^T r), kernel K3).  Assembly,
+  factorization, vectors and the lmax power iteration stay float32.
 
 The hierarchy carries no gradient (it only affects convergence); gradients
 flow through the IFT backward in ops/normal_solve.py.
 
 Not ported yet (they raise): evolution systems and the factored normal
-operator, the Jacobi and point-block smoothers, bf16 storage modes, and the
-sp-sharded solve.
+operator, the Jacobi and point-block smoothers, and the sp-sharded solve.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from mech_nn_discovery_pde_torch.ops.fused_smoother import (
     block_apply,
     chebyshev_schedule,
     chebyshev_smooth,
+    factored_block_apply,
 )
 from mech_nn_discovery_pde_torch.ops.interp import apply_separable, interp_matrix
 from mech_nn_discovery_pde_torch.ops.normal_stencil import (
@@ -89,13 +94,23 @@ class MultigridSolver:
         self.device = torch.device(device)
         self.solver_dbl = solver_dbl
         self.dtype = torch.float64 if solver_dbl else torch.float32
-        self.pdtype = torch.float32  # preconditioner dtype
+        self.pdtype = torch.float32  # preconditioner assembly and vector dtype
+        mpd = cfg.mg_precond_dtype
+        if mpd not in ("f32", "bf16", "bf16_factored"):
+            raise ValueError(f"unknown mg_precond_dtype {mpd!r}; expected 'f32', 'bf16' "
+                             "or 'bf16_factored'")
+        # storage dtypes (see config.mg_precond_dtype): 'bf16' rounds every
+        # stored operator; 'bf16_factored' stores W = L^-T in bf16 (round(W)
+        # round(W)^T stays PSD, unlike the entrywise-rounded inverse) and
+        # keeps coef and the coarse inverse f32
+        self.vdtype = torch.bfloat16 if mpd == "bf16" else torch.float32
+        self._factored_binv = mpd == "bf16_factored"
+        self.binv_dtype = torch.bfloat16 if mpd in ("bf16", "bf16_factored") else torch.float32
         unsupported = {
             "evolution": evolution,
             f"mg_normal_op={cfg.mg_normal_op!r}": cfg.mg_normal_op not in ("stencil", "stencil_pallas"),
             f"mg_smoother={cfg.mg_smoother!r}": cfg.mg_smoother not in ("chebyshev", "chebyshev_fused"),
             f"mg_block_smoother={cfg.mg_block_smoother!r}": cfg.mg_block_smoother != "line",
-            f"mg_precond_dtype={cfg.mg_precond_dtype!r}": cfg.mg_precond_dtype != "f32",
         }
         bad = [k for k, v in unsupported.items() if v]
         if bad:
@@ -209,9 +224,11 @@ class MultigridSolver:
     # ------------------------------------------------------------------
 
     def _level_precond_data(self, k: int, values: torch.Tensor) -> Dict[str, Any]:
-        """Per-level smoother data in f32: time-line block inverses (1e-6
-        max-diag ridge, Cholesky, explicit inverse), assembled stencil
-        fields, lmax, and the Chebyshev schedules of the pre/post passes."""
+        """Per-level smoother data: time-line block inverses (1e-6 max-diag
+        ridge, Cholesky, explicit inverse; or the factor W = L^-T), assembled
+        stencil fields, both in their storage dtypes; lmax, estimated on the
+        stored operators, and the Chebyshev schedules of the pre/post
+        passes."""
         sysk = self.systems[k]
         v32 = values.to(self.pdtype)
         B = sysk.assemble_line_blocks(v32)  # (bs, S, bw, bw)
@@ -221,10 +238,18 @@ class MultigridSolver:
         ridge = 1e-6 * torch.clamp(d.max(dim=-1, keepdim=True).values, min=1e-30)
         B = B + ridge[..., None] * eye
         L, _ = torch.linalg.cholesky_ex(B)
-        binv = torch.cholesky_solve(eye.expand_as(B), L)
+        if self._factored_binv:
+            # B^-1 = L^-T L^-1 = W W^T with W = L^-T
+            linv = torch.linalg.solve_triangular(L, eye.expand_as(B), upper=False)
+            binv = linv.transpose(-1, -2)
+        else:
+            binv = torch.cholesky_solve(eye.expand_as(B), L)
         del B, L
         coef = build_normal_coef(sysk.spec, self.descs[k], sysk.split_values(v32))
-        lvl = {"values": v32, "binv": binv.contiguous(), "coef": coef}
+        # the rounded (or factored) operators must be stored before lmax is
+        # estimated: Chebyshev amplifies any mode above an underestimate
+        lvl = {"values": v32, "binv": binv.to(self.binv_dtype).contiguous(),
+               "coef": coef.to(self.vdtype)}
         lvl["lmax"] = self._estimate_lmax(k, lvl)
         steps = max(self.config.mg_smoother_steps_pre, self.config.mg_smoother_steps_post)
         lvl["sched"] = chebyshev_schedule(lvl["lmax"], self.config.mg_chebyshev_ratio, steps)
@@ -235,8 +260,10 @@ class MultigridSolver:
         return stencil_apply(self.descs[k], lvl["coef"], v, **epilogue)
 
     def _block_apply(self, k: int, lvl, r: torch.Tensor) -> torch.Tensor:
-        """B^-1 r with the time-line block inverses (kernel K2 on CUDA)."""
-        return block_apply(lvl["binv"], r, self.dim_list[k][0])
+        """B^-1 r with the time-line block inverses (kernel K2 on CUDA), or
+        W (W^T r) with their factors (kernel K3)."""
+        apply = factored_block_apply if self._factored_binv else block_apply
+        return apply(lvl["binv"], r, self.dim_list[k][0])
 
     def _estimate_lmax(self, k: int, lvl, iters: int = 20) -> torch.Tensor:
         """Power iteration on B^-1 AtA (batched), biased high by the
@@ -351,6 +378,9 @@ class MultigridSolver:
         inv = torch.cat(cols, dim=-1)
         del cols, L
         coarse_inv = inv * s[:, :, None] * s[:, None, :]
+        # 'bf16' rounds the stored inverse; it is kept as f32 values for the
+        # coarse product, as the JAX package's einsum promotes it
+        coarse_inv = coarse_inv.to(self.vdtype).to(self.pdtype)
         return {"levels": levels, "coarse_inv": coarse_inv}
 
     # ------------------------------------------------------------------
@@ -362,7 +392,8 @@ class MultigridSolver:
         """Chebyshev smoothing pass (ops/fused_smoother.chebyshev_smooth);
         with want_residual also returns r = b - A x from the recurrence."""
         x, r = chebyshev_smooth(self.descs[k], self.dim_list[k][0], lvl["coef"],
-                                lvl["binv"], b, x, lvl["sched"], steps, x0_zero)
+                                lvl["binv"], b, x, lvl["sched"], steps, x0_zero,
+                                factored=self._factored_binv)
         return (x, r) if want_residual else x
 
     def _restrict_vec(self, k: int, r: torch.Tensor) -> torch.Tensor:
@@ -430,9 +461,10 @@ class MultigridSolver:
 
     def _fine_coef(self, hier, fine_values) -> torch.Tensor:
         """Fine-level stencil fields in the solve dtype, built once per
-        hierarchy (in f32 they equal the level-0 smoother fields)."""
+        hierarchy from the unrounded values (they equal the level-0 smoother
+        fields when those are stored in the solve dtype)."""
         sdt = self.solve_dtype
-        if sdt == self.pdtype:
+        if hier["levels"][0]["coef"].dtype == sdt:
             return hier["levels"][0]["coef"]
         if "fine_coef" not in hier:
             sys0 = self.systems[0]

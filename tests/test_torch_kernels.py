@@ -7,7 +7,14 @@ run here on their plain versions (CPU tensors).
 - ops/fused_smoother.py: K2's plain block apply and the Chebyshev smoothing
   pass (both starts, emitted residual) against `MultigridSolver._block_apply`
   and `_smooth` (f32, 1e-4, as tests/test_multigrid.py holds the Pallas
-  smoother), on the JAX package's own level-0 smoother data.
+  smoother), on the JAX package's own level-0 smoother data;
+- the stored-operator modes (mg_precond_dtype): the factor W = L^-T that the
+  port builds for 'bf16_factored' (one bf16 ulp), K3's plain apply
+  W (W^T r) (1e-5), the factored pass against `_smooth` and against the TPU
+  kernel itself (`make_fused_smoother(factored=True)` in interpret mode;
+  1e-4), and the 'bf16' pass with bf16 stencil fields and block inverses
+  (1e-4), all on the JAX package's level data carried across by
+  `line_blocks_from_jax`.
 
 The kernels themselves run only on the card; chip_smoke.py holds them
 against these plain versions there.
@@ -19,14 +26,17 @@ import numpy as np
 import pytest
 import torch
 
+from mech_nn_discovery_pde_torch.config import PDEConfig as TorchConfig
 from mech_nn_discovery_pde_torch.ops import fused_smoother as tfs
 from mech_nn_discovery_pde_torch.ops import normal_stencil as tns
 from mech_nn_discovery_pde_torch.ops.system import PDESystem as TorchSystem
+from mech_nn_discovery_pde_torch.solvers.multigrid import MultigridSolver as TorchSolver
 from mech_nn_discovery_pde_tpu.config import PDEConfig as JaxConfig
-from mech_nn_discovery_pde_tpu.layers.multigrid import MultigridLayer as JaxLayer
 from mech_nn_discovery_pde_tpu.ops import normal_stencil as jns
+from mech_nn_discovery_pde_tpu.ops.fused_smoother import make_fused_smoother
 from mech_nn_discovery_pde_tpu.ops.structured import split_values as jsplit
 from mech_nn_discovery_pde_tpu.ops.system import PDESystem as JaxSystem
+from mech_nn_discovery_pde_tpu.solvers.multigrid import MultigridSolver as JaxSolver
 
 torch.set_num_threads(1)
 
@@ -108,58 +118,104 @@ def test_k1_epilogue_semantics():
     assert torch.equal(xz, x)
 
 
+GL_DIMS = (6, 12, 12)
+GL_IVS = [
+    lambda nt, nx, ny: (0, 0, [0, 0, 0], [0, nx - 1, ny - 1]),
+    lambda nt, nx, ny: (1, 0, [1, 0, 0], [nt - 1, 0, ny - 1]),
+]
+MODES = ("f32", "bf16_factored", "bf16")
+FUSED_STEPS = 2  # steps of the TPU kernel's factored pass (interpret mode)
+
+
+def solver_kw(bs):
+    return dict(bs=bs, order=2, n_ind_dim=1, n_iv=1, init_index_mi_list=GL_IVS,
+                coord_dims=GL_DIMS, solver_dbl=True, n_grid=2, downsample_first=False)
+
+
+def to_torch(a):
+    """A JAX array as a torch tensor of the same dtype (bf16 via f32, exact)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.tensor(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.tensor(a)
+
+
 @pytest.fixture(scope="module")
 def gl_level():
-    """The JAX package's level-0 smoother data on the small GL-shaped case of
+    """The JAX package's level-0 smoother data in every mg_precond_dtype mode
+    on the small GL-shaped case of
     tests/test_multigrid.py::test_fused_smoother_matches_xla_smoother, and
-    reference smoothing passes on it."""
-    bs, dims = 2, (6, 12, 12)
-    ivs = [
-        lambda nt, nx, ny: (0, 0, [0, 0, 0], [0, nx - 1, ny - 1]),
-        lambda nt, nx, ny: (1, 0, [1, 0, 0], [nt - 1, 0, ny - 1]),
-    ]
-    lay = JaxLayer(bs=bs, coord_dims=dims, order=2, n_ind_dim=1, n_iv=1,
-                   init_index_mi_list=ivs, solver_dbl=True, n_grid=2,
-                   downsample_first=False, config=JaxConfig(precision="f64"))
-    mgs = lay.mg_solver
+    reference block applies and smoothing passes on it; with the
+    'bf16_factored' W also the TPU kernel's own factored pass on sample 0
+    (the kernel takes one sample), in interpret mode.  One jitted function
+    computes it all."""
+    bs, dims = 2, GL_DIMS
+    solvers = {mode: JaxSolver(config=JaxConfig(precision="f64", mg_precond_dtype=mode),
+                               **solver_kw(bs)) for mode in MODES}
+    # one jitted copy of the assembled-stencil ops for all three solvers: no
+    # value changes, and JAX traces them once instead of once per solver
+    ops = [(desc, jax.jit(build), jax.jit(apply_))
+           for desc, build, apply_ in solvers["f32"]._nstencil]
+    for mgs in solvers.values():
+        mgs._nstencil = ops
+    sys0 = solvers["f32"].systems[0]
     rng = np.random.default_rng(0)
-    gs = lay.grid_size
-    coeffs = np.zeros((bs, gs, lay.n_orders))
+    gs = sys0.var_set.grid_size
+    coeffs = np.zeros((bs, gs, sys0.var_set.n_mi))
     coeffs[..., 0] = 0.4
     coeffs[..., 1] = 1.0
     coeffs[..., 5] = -0.1
     steps = [np.full((bs, d - 1), 0.05) for d in dims]
-    rhs = 0.1 * rng.standard_normal((bs, gs))
-    iv = 0.1 * rng.standard_normal((bs, lay.system.n_init_rows))
-    n = mgs.systems[0].num_vars
+    rng.standard_normal((bs, gs))  # rhs and iv draws of the JAX test's case
+    rng.standard_normal((bs, sys0.n_init_rows))
+    n = sys0.num_vars
     b = rng.standard_normal((bs, n)).astype(np.float32)
     x0 = rng.standard_normal((bs, n)).astype(np.float32)
+    nt, m = dims[0], sys0.var_set.n_mi
+    ratio = solvers["f32"].config.mg_chebyshev_ratio
+    fused = make_fused_smoother(solvers["f32"]._nstencil[0][0], dims, FUSED_STEPS, ratio,
+                                x0_zero=False, interpret=True, emit_residual=True,
+                                factored=True)
 
     @jax.jit
-    def reference(coeffs, rhs, iv, steps, b, x0):
-        vals = mgs.systems[0].fill_values(coeffs, steps, dtype=jnp.float64)
-        lvl = mgs.build_hierarchy(coeffs, rhs, iv, steps, vals)["levels"][0]
-        sysk = mgs.systems[0]
+    def reference(coeffs, steps, b, x0):
+        vals = sys0.fill_values(coeffs, steps, dtype=jnp.float64)
+        out = {}
+        for mode, mgs in solvers.items():
+            lvl = mgs._level_precond_data(0, vals)
 
-        def one(lvl, b, x0):
-            z = jnp.zeros_like(b)
-            return {
-                "block": mgs._block_apply(sysk, lvl["binv"], b),
-                "zero4": mgs._smooth(0, lvl, b, z, 4, False, x0_zero=True,
-                                     want_residual=True),
-                "x3": mgs._smooth(0, lvl, b, x0, 3, False, want_residual=True),
-            }
-        return lvl, jax.vmap(one)(lvl, b, x0)
+            def one(lvl, b, x0, mgs=mgs):
+                z = jnp.zeros_like(b)
+                return {
+                    "block": mgs._block_apply(sys0, lvl["binv"], b),
+                    "zero4": mgs._smooth(0, lvl, b, z, 4, False, x0_zero=True,
+                                         want_residual=True),
+                    "x3": mgs._smooth(0, lvl, b, x0, 3, False, want_residual=True),
+                }
+            out[mode] = (lvl, jax.vmap(one)(lvl, b, x0))
+        # the fused kernel's column-major W: w[j][mi, ti, s] = W_s[ti*m+mi, j]
+        lvl = out["bf16_factored"][0]
+        w = jnp.transpose(lvl["binv"], (0, 3, 2, 1)).reshape(bs, nt * m, nt, m, -1)
+        w = jnp.transpose(w, (0, 1, 3, 2, 4))
+        pallas = fused(lvl["coef"][0], w[0], b[0], x0[0], lvl["lmax"][0])
+        return out, w, pallas
 
-    lvl, ref = reference(*(jnp.asarray(a) for a in (coeffs, rhs, iv)),
-                         [jnp.asarray(s) for s in steps], jnp.asarray(b), jnp.asarray(x0))
-    t = lambda a: torch.tensor(np.asarray(a))
+    out, w_fused, pallas = reference(jnp.asarray(coeffs), [jnp.asarray(s) for s in steps],
+                                     jnp.asarray(b), jnp.asarray(x0))
+    levels = {}
+    for mode, (lvl, ref) in out.items():
+        levels[mode] = {
+            "coef": to_torch(lvl["coef"]), "lmax": to_torch(lvl["lmax"]),
+            "binv": tfs.line_blocks_from_jax(np.asarray(lvl["binv"]), nt, m, "rows"),
+            "ref": jax.tree.map(np.asarray, ref),
+        }
     return {
-        "desc": tns.make_desc(TorchSystem.build(dims, order=2, init_index_mi_list=ivs).spec),
-        "nt": dims[0], "coef": t(lvl["coef"]), "binv": t(lvl["binv"]),
-        "lmax": t(lvl["lmax"]), "b": t(b), "x0": t(x0),
-        "ratio": mgs.config.mg_chebyshev_ratio,
-        "ref": jax.tree.map(np.asarray, ref),
+        "desc": tns.make_desc(TorchSystem.build(dims, order=2, init_index_mi_list=GL_IVS).spec),
+        "nt": nt, "m": m, "b": torch.tensor(b), "x0": torch.tensor(x0), "ratio": ratio,
+        "values": to_torch(out["f32"][0]["values"]), "levels": levels,
+        "w_fused": np.asarray(w_fused), "pallas": jax.tree.map(np.asarray, pallas),
+        # the f32 mode's data also at the top level, where the f32 tests read it
+        **{k: levels["f32"][k] for k in ("coef", "binv", "lmax", "ref")},
     }
 
 
@@ -195,3 +251,83 @@ def test_smoothing_pass_matches_jax(gl_level, steps, x0_zero):
     # the emitted residual is b - A x
     r_true = tns.stencil_apply(g["desc"], g["coef"], x, rin=g["b"])
     assert rel(r, r_true) <= 1e-4
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp (8 significant bits) at each value of x."""
+    return torch.exp2(torch.floor(torch.log2(x.clamp_min(1e-30))) - 7)
+
+
+def test_factored_w_matches_jax(gl_level):
+    """The port's 'bf16_factored' level data stores W = L^-T in bf16, equal
+    to the JAX package's W within one bf16 ulp of each block's largest entry
+    (both factor the same f32 blocks; rounding may tip either way)."""
+    g = gl_level
+    mgs = TorchSolver(config=TorchConfig(precision="f64", mg_precond_dtype="bf16_factored"),
+                      device="cpu", **solver_kw(2))
+    lvl = mgs._level_precond_data(0, g["values"])
+    w, wj = lvl["binv"], g["levels"]["bf16_factored"]["binv"]
+    assert w.dtype == wj.dtype == torch.bfloat16
+    assert lvl["coef"].dtype == torch.float32
+    diff = (w.float() - wj.float()).abs().amax(dim=(-2, -1))
+    assert bool((diff <= bf16_ulp(wj.float().abs().amax(dim=(-2, -1)))).all())
+    assert bool((w.float().tril(-1) == 0).all())  # L^-T is upper-triangular
+    assert rel(lvl["lmax"], g["levels"]["bf16_factored"]["lmax"]) <= 1e-4
+
+
+def test_k3_plain_factored_apply_matches_jax(gl_level):
+    """K3's plain apply W (W^T r) on the JAX package's W equals its factored
+    `_block_apply` (1e-5), with the Chebyshev epilogue (1e-6)."""
+    g = gl_level
+    w = g["levels"]["bf16_factored"]["binv"]
+    want = g["levels"]["bf16_factored"]["ref"]["block"]
+    got = tfs.factored_block_apply(w, g["b"], g["nt"])
+    assert rel(got, want) <= 1e-5
+    assert rel(tfs.factored_block_apply_plain(w, g["b"], g["nt"]), want) <= 1e-5
+    c1, c2 = torch.tensor([0.5, -2.0]), torch.tensor([3.0, 0.25])
+    d = g["x0"].clone()
+    tfs.factored_block_apply(w, g["b"], g["nt"], d=d, c1=c1, c2=c2)
+    assert rel(d, c1[:, None] * g["x0"] + c2[:, None] * got) <= 1e-6
+
+
+@pytest.mark.parametrize("mode", ["bf16_factored", "bf16"])
+@pytest.mark.parametrize("steps,x0_zero", [(4, True), (3, False)])
+def test_stored_mode_pass_matches_jax(gl_level, mode, steps, x0_zero):
+    """The smoothing pass on bf16-stored operators reproduces the JAX
+    package's `_smooth` in that mode (1e-4): factored W with f32 stencil
+    fields, or bf16 stencil fields and block inverses."""
+    g = gl_level
+    lv = g["levels"][mode]
+    factored = mode == "bf16_factored"
+    want_x, want_r = lv["ref"]["zero4" if x0_zero else "x3"]
+    if not factored:
+        assert lv["coef"].dtype == lv["binv"].dtype == torch.bfloat16
+        assert rel(tfs.block_apply(lv["binv"], g["b"], g["nt"]), lv["ref"]["block"]) <= 1e-4
+    sched = tfs.chebyshev_schedule(lv["lmax"], g["ratio"], steps)
+    x, r = tfs.chebyshev_smooth(g["desc"], g["nt"], lv["coef"], lv["binv"], g["b"], g["x0"],
+                                sched, steps, x0_zero, factored=factored)
+    assert rel(x, want_x) <= 1e-4
+    assert rel(r, want_r) <= 1e-4
+    xp, rp = tfs.chebyshev_smooth_plain(g["desc"], g["nt"], lv["coef"], lv["binv"], g["b"],
+                                        g["x0"], lv["lmax"], g["ratio"], steps, x0_zero,
+                                        factored=factored)
+    assert rel(xp, want_x) <= 1e-4
+    assert rel(rp, want_r) <= 1e-4
+    assert rel(r, tns.stencil_apply(g["desc"], lv["coef"], x, rin=g["b"])) <= 1e-4
+
+
+def test_factored_pass_matches_tpu_kernel(gl_level):
+    """The port's factored pass equals the TPU kernel's own
+    (`_fused_chebyshev_kernel` with factored=True, interpret mode, emitted
+    residual) on W carried across from the kernel's column-major layout
+    (1e-4 on sample 0, as tests/test_multigrid.py holds the kernel)."""
+    g = gl_level
+    lv = g["levels"]["bf16_factored"]
+    w = tfs.line_blocks_from_jax(g["w_fused"], g["nt"], g["m"], "fused")
+    assert torch.equal(w, lv["binv"])
+    sched = tfs.chebyshev_schedule(lv["lmax"], g["ratio"], FUSED_STEPS)
+    x, r = tfs.chebyshev_smooth(g["desc"], g["nt"], lv["coef"], w, g["b"], g["x0"], sched,
+                                FUSED_STEPS, factored=True)
+    want_x, want_r = g["pallas"]
+    assert rel(x[0], want_x) <= 1e-4
+    assert rel(r[0], want_r) <= 1e-4

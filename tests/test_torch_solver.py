@@ -1,12 +1,15 @@
 """PyTorch port vs the JAX package: FGMRES, the multigrid layer's forward
-solve and IFT backward, the Ginzburg-Landau discovery loss, and the GL data
-pipeline; plus the port's own preconditioner-quality guard.
+solve and IFT backward, the forward solve in the bf16 storage modes
+(mg_precond_dtype), the Ginzburg-Landau discovery loss, and the GL data
+pipeline; plus the port's own preconditioner-quality guard and the factored
+bf16 layer against the port's f32 layer.
 
 Inputs come from numpy with a fixed seed and go through both packages; the
 port runs on the CPU (plain kernel versions).  Tolerances: FGMRES solutions
 1e-8 with equal iteration counts; layer u0 and the gradients of sum(u0^2)
-1e-4 with equal iteration counts; GL loss 1e-5 and its parameter gradients
-1e-4; data arrays exact.
+1e-4 with equal iteration counts; bf16-mode forward solves with equal
+iteration counts and the JAX package's quality pins; GL loss 1e-5 and its
+parameter gradients 1e-4; data arrays exact.
 
 The layer cases are chosen so that both solves get far enough (60 FGMRES
 iterations, forward rel_rnorm ~4e-6) that the float32 preconditioner's
@@ -100,33 +103,163 @@ SOLVE_CFG = dict(
 )
 
 
-def test_multigrid_layer_matches_jax():
+LAYER_KW = dict(coord_dims=(6, 12, 12), order=2, n_ind_dim=1, n_iv=1,
+                init_index_mi_list=GL_IVS, solver_dbl=True, n_grid=2, downsample_first=False)
+
+
+@pytest.fixture(scope="module")
+def jax_layers():
+    """jax_layers(mode): the JAX layer of LAYER_KW at SOLVE_CFG and bs 2 in
+    storage mode `mode`, one per mode for the module.  Their assembled-
+    stencil ops (per level, the AtA field assembly and its apply) run through
+    one shared jitted copy, and each solver's hierarchy build and FGMRES
+    solve through jax.jit.  jit changes no value; JAX then traces each of
+    these once per shape instead of at every call, and those traces are
+    most of what this module's JAX references cost."""
+    ops, layers = [], {}
+
+    def get(mode):
+        if mode not in layers:
+            cfg = JaxConfig(return_solve_stats=True, mg_precond_dtype=mode, **SOLVE_CFG)
+            lay = JaxLayer(bs=2, config=cfg, **LAYER_KW)
+            mgs = lay.mg_solver
+            if not ops:
+                ops.extend((desc, jax.jit(build), jax.jit(apply_))
+                           for desc, build, apply_ in mgs._nstencil)
+            mgs._nstencil = list(ops)
+            mgs.build_hierarchy = jax.jit(mgs.build_hierarchy)
+            mgs.solve_normal = jax.jit(mgs.solve_normal, static_argnames="back")
+            layers[mode] = lay
+        return layers[mode]
+
+    return get
+
+
+def torch_layer_step(mode, coeffs, rhs, iv, steps):
+    """The port's layer at SOLVE_CFG in storage mode `mode`: u0, the forward
+    solve's stats and the gradients of sum(u0^2) w.r.t. coeffs, rhs, iv."""
+    tl = TorchLayer(bs=coeffs.shape[0], device=CPU, **LAYER_KW,
+                    config=TorchConfig(return_solve_stats=True, mg_precond_dtype=mode,
+                                       **SOLVE_CFG))
+    tc, tr, ti = (torch.tensor(a, requires_grad=True) for a in (coeffs, rhs, iv))
+    u0, _, st = tl(tc, tr, ti, [torch.tensor(s) for s in steps])
+    (u0**2).sum().backward()
+    return u0.detach(), st, (tc.grad, tr.grad, ti.grad)
+
+
+@pytest.fixture(scope="module")
+def layer_inputs():
+    """The (6, 12, 12) n_grid 2 layer case at bs 2."""
+    bs = 2
+    coeffs, rhs, steps, rng = _layer_case(bs, LAYER_KW["coord_dims"])
+    n_init = TorchLayer(bs=bs, device=CPU, **LAYER_KW).system.n_init_rows
+    iv = 0.1 * rng.standard_normal((bs, n_init))
+    return coeffs, rhs, iv, steps
+
+
+@pytest.fixture(scope="module")
+def f32_step(layer_inputs):
+    return torch_layer_step("f32", *layer_inputs)
+
+
+@pytest.fixture(scope="module")
+def factored_step(layer_inputs):
+    return torch_layer_step("bf16_factored", *layer_inputs)
+
+
+@pytest.fixture(scope="module")
+def jax_layer_refs(layer_inputs, jax_layers):
+    """The JAX layer on the layer case, in one jitted program: f32 u0 and
+    the gradients of sum(u0^2) w.r.t. coeffs, rhs and iv with the FGMRES
+    iterations; and in each bf16 storage mode the forward u0 and stats."""
+    coeffs, rhs, iv, steps = layer_inputs
+    jl = jax_layers("f32")
+    fwd = {mode: jax_layers(mode) for mode in ("bf16_factored", "bf16")}
+    jsteps = [jnp.asarray(s) for s in steps]
+
+    def jloss(c, r, i):
+        u0, _, st = jl(c, r, i, jsteps)
+        return jnp.sum(u0**2), (u0, st["iters"])
+
+    @jax.jit
+    def refs(c, r, i):
+        (_, (u0, iters)), grads = jax.value_and_grad(jloss, argnums=(0, 1, 2), has_aux=True)(
+            c, r, i)
+        modes = {}
+        for mode, lay in fwd.items():
+            mu0, _, mst = lay(c, r, i, jsteps)
+            modes[mode] = (mu0, mst)
+        return (u0, iters, grads), modes
+
+    out = refs(jnp.asarray(coeffs), jnp.asarray(rhs), jnp.asarray(iv))
+    return jax.tree.map(np.asarray, out)
+
+
+def test_multigrid_layer_matches_jax(f32_step, jax_layer_refs):
     """u0 and the IFT gradients of sum(u0^2) w.r.t. coefficients, rhs and
     boundary data equal the JAX layer's, with the same FGMRES iterations,
     on the (6, 12, 12) n_grid 2 case with residual reuse and the fused
     Krylov matvec (the options of the production configuration)."""
-    bs, dims = 2, (6, 12, 12)
-    lk = dict(bs=bs, coord_dims=dims, order=2, n_ind_dim=1, n_iv=1,
-              init_index_mi_list=GL_IVS, solver_dbl=True, n_grid=2, downsample_first=False)
-    jl = JaxLayer(config=JaxConfig(return_solve_stats=True, **SOLVE_CFG), **lk)
-    tl = TorchLayer(config=TorchConfig(return_solve_stats=True, **SOLVE_CFG), device=CPU, **lk)
-    coeffs, rhs, steps, rng = _layer_case(bs, dims)
-    iv = 0.1 * rng.standard_normal((bs, jl.system.n_init_rows))
-
-    def jloss(c, r, i):
-        u0, _, st = jl(c, r, i, [jnp.asarray(s) for s in steps])
-        return jnp.sum(u0**2), (u0, st["iters"])
-
-    (_, (ju0, jits)), jg = jax.jit(jax.value_and_grad(jloss, argnums=(0, 1, 2), has_aux=True))(
-        jnp.asarray(coeffs), jnp.asarray(rhs), jnp.asarray(iv))
-
-    tc, tr, ti = (torch.tensor(a, requires_grad=True) for a in (coeffs, rhs, iv))
-    u0, _, st = tl(tc, tr, ti, [torch.tensor(s) for s in steps])
-    (u0**2).sum().backward()
-    assert st["iters"].tolist() == np.asarray(jits).tolist()
-    assert rel(u0.detach(), ju0) <= 1e-4
-    for name, t, j in zip(("coeffs", "rhs", "iv"), (tc.grad, tr.grad, ti.grad), jg):
+    u0, st, grads = f32_step
+    (ju0, jits, jg), _ = jax_layer_refs
+    assert st["iters"].tolist() == jits.tolist()
+    assert rel(u0, ju0) <= 1e-4
+    for name, t, j in zip(("coeffs", "rhs", "iv"), grads, jg):
         assert rel(t, j) <= 1e-4, name
+
+
+def test_factored_layer_matches_f32_layer(f32_step, factored_step):
+    """At the converged SOLVE_CFG budget the 'bf16_factored' layer (W = L^-T
+    in bf16, kernel K3's path) gives the f32 layer's u0 and IFT gradients
+    (1e-4): the factored storage keeps f32 preconditioner quality."""
+    u0, _, grads = f32_step
+    fu0, _, fgrads = factored_step
+    assert rel(fu0, u0) <= 1e-4
+    for name, t, j in zip(("coeffs", "rhs", "iv"), fgrads, grads):
+        assert rel(t, j) <= 1e-4, name
+
+
+@pytest.mark.parametrize("mode", ["bf16_factored", "bf16"])
+def test_forward_solve_modes_match_jax(mode, layer_inputs, f32_step, factored_step,
+                                       jax_layer_refs):
+    """The layer's forward solve in each bf16 storage mode against the JAX
+    layer's, on the layer case: the same FGMRES iterations, and rel_rnorm
+    held to the JAX package's pin for the mode in both packages.
+    'bf16_factored' gives JAX's u0 (1e-4) and stays within 2x the f32
+    residual (tests/test_multigrid.py); its rel_rnorm (~3.5e-6) sits at the
+    f32 preconditioner's rounding floor, where the JAX package's own value
+    moves by ~7 % with XLA's thread count, so the two are not compared
+    directly.  'bf16' is quality-fatal at GL scale (the JAX package's config
+    records it; both packages end above rel_rnorm 1 here), so it is held to
+    JAX's rel_rnorm alone (5e-2: the indefinite preconditioner makes the end
+    residual sensitive to rounding order; measured 1.2e-3)."""
+    ju0, jst = jax_layer_refs[1][mode]
+    if mode == "bf16_factored":
+        u0, st, _ = factored_step
+    else:
+        coeffs, rhs, iv, steps = layer_inputs
+        tl = TorchLayer(bs=coeffs.shape[0], device=CPU, **LAYER_KW,
+                        config=TorchConfig(return_solve_stats=True, mg_precond_dtype=mode,
+                                           **SOLVE_CFG))
+        with torch.no_grad():
+            u0, _, st = tl(*(torch.tensor(a) for a in (coeffs, rhs, iv)),
+                           [torch.tensor(s) for s in steps])
+    assert st["iters"].tolist() == jst["iters"].tolist()
+    assert bool(torch.isfinite(u0).all())
+    if mode == "bf16_factored":
+        assert rel(u0, ju0) <= 1e-4
+        f32 = float(f32_step[1]["rel_rnorm"].max())
+        for got in (float(st["rel_rnorm"].max()), float(jst["rel_rnorm"].max())):
+            assert got < 2 * f32 + 1e-6, (got, f32)
+    else:
+        assert rel(st["rel_rnorm"], jst["rel_rnorm"]) <= 5e-2
+
+
+def test_unknown_precond_dtype_raises():
+    """Any mg_precond_dtype other than 'f32', 'bf16' and 'bf16_factored' is a
+    ValueError, as in the JAX package."""
+    with pytest.raises(ValueError, match="mg_precond_dtype"):
+        TorchLayer(bs=1, device=CPU, config=TorchConfig(mg_precond_dtype="f16"), **LAYER_KW)
 
 
 def test_preconditioner_quality_guard():
@@ -169,7 +302,7 @@ def _gl_fields(bs, dims):
     return np.stack([t.real for t in tiles]), np.stack([t.imag for t in tiles])
 
 
-def test_gl_loss_matches_jax():
+def test_gl_loss_matches_jax(jax_layers):
     """One GLDiscovery.loss_fn value (1e-5) and its gradients w.r.t. every
     ParamNet parameter (1e-4), with the JAX package's initial parameters
     carried into the port by `state_dict_from_flax`."""
@@ -184,7 +317,9 @@ def test_gl_loss_matches_jax():
     tcfg = tgl.GLConfig(solver_dim=dims, n_grid=2, batch_size=bs,
                         pde=TorchConfig(return_solve_stats=True, **SOLVE_CFG))
     jmodel = jgl.GLDiscovery(jcfg, TinyDS())
-    params = jax.tree.map(np.array, jmodel.init(jax.random.PRNGKey(0)))
+    jmodel.layer = jax_layers("f32")  # the same layer configuration, traced once
+    # jitted: the same parameters as the eager init, from one compiled program
+    params = jax.tree.map(np.array, jax.jit(jmodel.init)(jax.random.PRNGKey(0)))
     # Shrink each ParamNet's output head around a well-posed equation
     # (u_t + u - 0.5 lap u = 0.5 v): the raw init's O(1) coefficients include
     # anti-diffusion, where a 1e-12 input perturbation moves the port's own
