@@ -11,9 +11,15 @@ holds each hand-written CUDA kernel against its plain PyTorch version:
      of the bf16 storage modes (mg_precond_dtype) K3 (factored W) and its
      epilogue, the factored 4-step passes, K1 with bf16 stencil fields and
      K2 with a bf16 inverse; median time per launch over 20 launches (CUDA
-     events), beside the plain version and a PyTorch yardstick computing
-     the same function (K1: a CSR sparse product; K2: one bmm; K3: two bmm
-     on an f32 copy of W, as no single call computes W (W^T r));
+     events, each launch bracketed alone; for the five kernels also per
+     launch over 10 runs of 10 back-to-back launches, `ms_back_to_back` in
+     the kernels line), beside the plain version and a PyTorch yardstick
+     computing the same function (K1: a CSR sparse product; K2: one bmm;
+     K3: two bmm on an f32 copy of W, as no single call computes W (W^T r));
+     the stored W's strict lower triangle must be exactly zero at both
+     levels (K3 reads only the upper one); then K2 (f32 and bf16 blocks)
+     and K3 with their epilogues at the odd shape bw 42 (the kernels' other
+     load path);
   3. layer step at the production config "b30c4rm" (bs 32, (8, 32, 32),
      n_grid 3): forward + IFT backward of sum(u0^2); step time over 5 runs
      on perturbed inputs; FGMRES iterations and rel_rnorm (must be
@@ -79,9 +85,11 @@ def bound(n_bytes: float, n_flops: float):
     return max(t_bytes, t_flops) * 1e3, "bytes" if t_bytes >= t_flops else "operations"
 
 
-def time_ms(fn, n: int = 20, warmup: int = 3) -> float:
+def time_ms(fn, n: int = 20, warmup: int = 3, batch: int = 1) -> float:
     """Median milliseconds per call over n calls, each bracketed by CUDA
-    events, after warm-up."""
+    events, after warm-up.  With batch > 1 each of the n samples is a run of
+    `batch` back-to-back calls, divided by batch: the device's time per call
+    where the device, not the host's launch, is the slower."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -90,11 +98,17 @@ def time_ms(fn, n: int = 20, warmup: int = 3) -> float:
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        fn()
+        for _ in range(batch):
+            fn()
         e1.record()
         e1.synchronize()
-        ts.append(e0.elapsed_time(e1))
+        ts.append(e0.elapsed_time(e1) / batch)
     return statistics.median(ts)
+
+
+def time_ms_back_to_back(fn) -> float:
+    """Median per call over 10 runs of 10 back-to-back calls."""
+    return time_ms(fn, n=10, batch=10)
 
 
 def bench_inputs(layer, bs, dims, seed, device):
@@ -223,6 +237,12 @@ def phase_kernels(layer, hier, values, dev, seed):
         if not W.dtype == coef16.dtype == binv16.dtype == torch.bfloat16:
             raise AssertionError(f"stored operators not bf16: {W.dtype}, {coef16.dtype}, "
                                  f"{binv16.dtype}")
+        # K3 reads only W's upper triangle: the stored lower one must be 0
+        n_low = int((W.tril(-1) != 0).sum())
+        log(f"  stored W strict lower triangle (level {k}): {n_low} nonzero entries")
+        if n_low:
+            raise AssertionError(f"stored W at level {k} has {n_low} nonzero entries below "
+                                 f"its diagonal")
         t3_k = fs.factored_block_apply(W, x, nt)
         t3_p = fs.factored_block_apply_plain(W, x, nt)
         check(f"K3 factored apply (level {k})", rel_err(t3_k, t3_p), 1e-5)
@@ -299,6 +319,17 @@ def phase_kernels(layer, hier, values, dev, seed):
             f"{k3_bound:.4f}); K1 bf16 {t_k1b:.4f} ms (plain {t_k1bp:.4f}, CSR {t_k1blib:.4f}, "
             f"bound {k1b_bound:.4f}); K2 bf16 {t_k2b:.4f} ms (plain {t_k2bp:.4f}, bmm "
             f"{t_k2blib:.4f}, bound {k2b_bound:.4f})")
+        # the same launches back to back, without the host's time per launch
+        b2b = {
+            "k1": time_ms_back_to_back(lambda: ns.stencil_apply(desc, coef, x, out=y_k)),
+            "k2": time_ms_back_to_back(lambda: fs.block_apply(binv, x, nt, d=t_k)),
+            "k3": time_ms_back_to_back(lambda: fs.factored_block_apply(W, x, nt, d=t3_k)),
+            "k1_bf16": time_ms_back_to_back(
+                lambda: ns.stencil_apply(desc, coef16, x, out=y16_k)),
+            "k2_bf16": time_ms_back_to_back(lambda: fs.block_apply(binv16, x, nt, d=t16_k)),
+        }
+        log("  back to back, per launch: " + ", ".join(f"{n} {t:.4f} ms"
+                                                         for n, t in b2b.items()))
         rows = {
             "k1": (abs_err(y_k, y_p), t_k1, t_k1p, k1_bound, k1_by, t_k1lib),
             "k2": (abs_err(t_k, t_p), t_k2, t_k2p, k2_bound, k2_by, t_k2lib),
@@ -309,9 +340,43 @@ def phase_kernels(layer, hier, values, dev, seed):
         if k == 0:  # level 0 enters the report
             for key, (err, ms, plain, bnd, by, lib) in rows.items():
                 report[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
-                                   bound_by=by, library_ms=lib)
+                                   bound_by=by, library_ms=lib, ms_back_to_back=b2b[key])
         del lw, lb, W, coef16, binv16
     return report
+
+
+def phase_odd_shape(dev, seed, bs=2, nt=6, m=7, S=144):
+    """Phase 2b: K2 (f32 and bf16 blocks) and K3 with their epilogues against
+    the plain versions on random blocks at bw 42 (the CPU tests' (6, 12, 12)
+    systems): the f32 blocks (7,056 B) take the bulk copy, the bf16 ones
+    (3,528 B, not a multiple of 16) the kernels' own load path."""
+    from mech_nn_discovery_pde_torch.ops import _cuda
+    from mech_nn_discovery_pde_torch.ops import fused_smoother as fs
+
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+    bw = nt * m
+    n = nt * S * m
+    x = torch.randn((bs, n), generator=g, device=dev)
+    b = torch.randn((bs, n), generator=g, device=dev)
+    c1 = torch.rand((bs,), generator=g, device=dev)
+    c2 = torch.rand((bs,), generator=g, device=dev)
+    B = torch.randn((bs, S, bw, bw), generator=g, device=dev)
+    W = torch.randn((bs, S, bw, bw), generator=g, device=dev).triu().to(torch.bfloat16)
+    log(f"odd shape: bs {bs}, nt {nt}, m {m}, S {S} -> {S} lines x {bw}^2")
+    cases = (("K2 f32", fs.block_apply, fs.block_apply_plain, B, False),
+             ("K2 bf16", fs.block_apply, fs.block_apply_plain, B.to(torch.bfloat16), False),
+             ("K3", fs.factored_block_apply, fs.factored_block_apply_plain, W, True))
+    for name, kern, plain, blocks, factored in cases:
+        geo = fs.line_block_geometry(bs, S, bw, blocks.element_size(), _cuda.sm_count(dev),
+                                     factored)
+        log(f"  {name}: {geo.ctas} CTAs, {geo.stages} stages, {geo.smem_bytes} B shared, "
+            f"{'bulk copy' if geo.bulk else 'in-kernel load path'}")
+        check(f"{name} apply (bw {bw})", rel_err(kern(blocks, x, nt), plain(blocks, x, nt)), 1e-5)
+        d_k, d_p = b.clone(), b.clone()
+        kern(blocks, x, nt, d=d_k, c1=c1, c2=c2)
+        plain(blocks, x, nt, d=d_p, c1=c1, c2=c2)
+        check(f"{name} Chebyshev epilogue (bw {bw})", rel_err(d_k, d_p), 1e-5)
+    torch.cuda.synchronize()
 
 
 # CUPTI overhead records (host blocked on a full launch queue, trace buffer
@@ -548,6 +613,7 @@ def main() -> int:
     log(f"hierarchy built in {time.perf_counter() - t0:.2f} s; lmax level 0 "
         f"{float(hier['levels'][0]['lmax'].min()):.4f}..{float(hier['levels'][0]['lmax'].max()):.4f}")
     report = phase_kernels(layer, hier, values.detach(), dev, args.seed)
+    phase_odd_shape(dev, args.seed)
     del layer, hier, values
     torch.cuda.empty_cache()
 

@@ -46,10 +46,12 @@ _SIGNATURES = {
         "k1_stencil_apply_f64": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
         "k1_stencil_apply_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     },
+    # operands, (m, nt, S, bs), the launch geometry (ctas, stages,
+    # smem_bytes, bulk; ops/fused_smoother.line_block_geometry), stream
     "line_block": {
-        "k2_line_block_apply_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-        "k2_line_block_apply_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-        "k3_factored_line_block_apply_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "k2_line_block_apply_f32": [_P] * 5 + [_I] * 8 + [_P],
+        "k2_line_block_apply_bf16": [_P] * 5 + [_I] * 8 + [_P],
+        "k3_factored_line_block_apply_bf16": [_P] * 5 + [_I] * 8 + [_P],
     },
 }
 _ERROR_FN = {"stencil_apply": "k1_error_string", "line_block": "k2_error_string"}
@@ -132,6 +134,18 @@ def ptr(t) -> int | None:
 
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+_SM_COUNT: Dict[int, int] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (read at first launch)."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    n = _SM_COUNT.get(idx)
+    if n is None:
+        n = _SM_COUNT[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return n
 
 
 def require_cuda(*tensors) -> None:

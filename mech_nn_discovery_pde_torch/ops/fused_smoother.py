@@ -16,7 +16,10 @@ epilogues:
 
 K3 replaces K2 under mg_precond_dtype='bf16_factored', where the level
 stores the PSD square-root factor W = L^-T of B^-1 = W W^T in bfloat16 (the
-TPU kernel's `factored=True`, `_emit_factored_block_apply`).
+TPU kernel's `factored=True`, `_emit_factored_block_apply`).  Both launch
+persistent CTAs that stream the blocks through a shared-memory ring; their
+launch geometry (`line_block_geometry`) is computed here from the shapes
+and the card's SM count.
 
 The recurrence is the JAX package's (`MultigridSolver._smooth` chebyshev
 branch and `_fused_chebyshev_kernel`): Chebyshev over [lmax/ratio, lmax],
@@ -35,6 +38,8 @@ versions (`block_apply_plain`, `factored_block_apply_plain`,
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -140,7 +145,9 @@ def block_apply(
     float32.  With `d` given, writes d = c1 d + c2 t into d and returns it
     (c1 None reads as 0, and d is then not read; c2 None as 1; both
     per-sample (bs,) tensors); else returns t.  CUDA tensors launch kernel
-    K2; CPU tensors run the plain version."""
+    K2; CPU tensors run the plain version.  K2 stages each block in one
+    CTA's shared memory: it takes bw <= 240 in float32 and <= 339 in
+    bfloat16, and raises ValueError beyond (`line_block_geometry`)."""
     if binv.is_cuda:
         launcher = _K2_FN.get(binv.dtype)
         if launcher is None:
@@ -162,7 +169,12 @@ def factored_block_apply(
     """t = W (W^T r) = B^-1 r per time-line block, from the bfloat16 factor
     W = L^-T of mg_precond_dtype='bf16_factored' (bs, S, bw, bw); same
     vectors and epilogue as `block_apply`.  CUDA tensors launch kernel K3;
-    CPU tensors run the plain version."""
+    CPU tensors run the plain version.
+
+    Contract: W is upper-triangular, with an exactly zero strict lower
+    triangle (the solver stores L^-T with `.triu()`).  K3 reads only the
+    upper triangle; the plain version reads all of W.  K3 takes bw <= 337
+    and raises ValueError beyond, as `block_apply` does."""
     if w.is_cuda:
         if w.dtype != torch.bfloat16:
             raise ValueError(f"factored_block_apply: K3 takes a bfloat16 W, got {w.dtype}")
@@ -172,17 +184,86 @@ def factored_block_apply(
     return factored_block_apply_plain(w, r, nt, d, c1, c2)
 
 
-# stored block dtype -> (launcher, launch-count name)
+# stored block dtype -> (launcher, launch-count name, factored)
 _K2_FN = {
-    torch.float32: ("k2_line_block_apply_f32", "k2_line_block_apply"),
-    torch.bfloat16: ("k2_line_block_apply_bf16", "k2_line_block_apply_bf16"),
+    torch.float32: ("k2_line_block_apply_f32", "k2_line_block_apply", False),
+    torch.bfloat16: ("k2_line_block_apply_bf16", "k2_line_block_apply_bf16", False),
 }
-_K3_FN = ("k3_factored_line_block_apply_bf16", "k3_factored_line_block_apply")
+_K3_FN = ("k3_factored_line_block_apply_bf16", "k3_factored_line_block_apply", True)
+
+# Hopper SM shared memory: 227 KB a block may use, 228 KB an SM holds with
+# 1 KB reserved per resident block
+_SMEM_PER_BLOCK = 232448
+_SMEM_PER_SM = 233472
+_SMEM_RESERVED = 1024
+# the ring: CTAs per SM and stages per CTA.  A CTA computes one item at a
+# time, so the CTAs per SM set how many items' shared-memory reads overlap;
+# 2 stages let each CTA's next block load while one is computed on
+_CTAS_PER_SM = 8
+_STAGES = 2
+
+
+def _pad16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+@dataclasses.dataclass(frozen=True)
+class LineBlockGeometry:
+    """Launch geometry of K2/K3 (csrc/line_block.cu): `ctas` persistent CTAs
+    (one producer warp and ceil(bw/32) consumer warps each), each with a
+    ring of `stages` stages in `smem_bytes` of dynamic shared memory; CTA c
+    takes the items (sample, line) c, c + ctas, ... of the bs*S items.
+    `bulk`: each block is moved by one 1-D bulk copy (its bytes a multiple
+    of 16); else the kernel's own load path copies it."""
+
+    ctas: int
+    stages: int
+    smem_bytes: int
+    bulk: bool
+
+
+def line_block_smem_bytes(bw: int, stages: int, entry_bytes: int, factored: bool) -> int:
+    """The kernel's shared-memory layout (`make_layout` in line_block.cu):
+    2 mbarriers per stage, K3's double-buffered f32 u, and per stage the
+    block and r's line, each padded to 16 bytes."""
+    stage = _pad16(bw * bw * entry_bytes) + _pad16(4 * bw)
+    u = _pad16(2 * 4 * bw) if factored else 0
+    return 16 * stages + u + stages * stage
+
+
+@functools.lru_cache(maxsize=64)
+def line_block_geometry(bs: int, S: int, bw: int, entry_bytes: int, n_sm: int,
+                        factored: bool = False) -> LineBlockGeometry:
+    """Choose K2/K3's launch geometry for bs*S blocks of bw x bw entries of
+    `entry_bytes` on a card of `n_sm` SMs: _CTAS_PER_SM CTAs of _STAGES
+    stages each, fewer CTAs per SM where shared memory does not hold them,
+    then one stage.  A block must fit one CTA's shared memory (227 KB):
+    bw <= 240 in f32, <= 339 in bf16 (<= 337 for K3); a larger one raises
+    ValueError."""
+    if min(bs, S, bw, entry_bytes, n_sm) < 1:
+        raise ValueError(f"line_block_geometry: bad shape bs={bs} S={S} bw={bw} n_sm={n_sm}")
+    per_sm, stages = _CTAS_PER_SM, _STAGES
+
+    def smem(st):
+        return line_block_smem_bytes(bw, st, entry_bytes, factored)
+
+    while per_sm * (smem(stages) + _SMEM_RESERVED) > _SMEM_PER_SM:
+        if per_sm > 1:
+            per_sm -= 1
+        elif stages > 1:
+            stages = 1
+        else:
+            break
+    if smem(stages) > _SMEM_PER_BLOCK:
+        raise ValueError(f"line_block_geometry: a {bw}x{bw} block of {entry_bytes}-byte "
+                         f"entries does not fit one CTA's shared memory")
+    return LineBlockGeometry(ctas=min(bs * S, n_sm * per_sm), stages=stages,
+                             smem_bytes=smem(stages), bulk=bw * bw * entry_bytes % 16 == 0)
 
 
 def _launch_line_block(launcher, blocks, r, nt, d, c1, c2):
     """Check the operands of a csrc/line_block.cu kernel and launch it."""
-    fn, counted = launcher
+    fn, counted, factored = launcher
     bs, S, bw, bw2 = blocks.shape
     if bw != bw2 or bw % nt:
         raise ValueError(f"{fn}: bad block shape {tuple(blocks.shape)} for nt={nt}")
@@ -200,10 +281,14 @@ def _launch_line_block(launcher, blocks, r, nt, d, c1, c2):
         if c is not None and tuple(c.shape) != (bs,):
             raise ValueError(f"{fn}: c1/c2 must be per-sample (bs,) tensors")
     _cuda.require_cuda(blocks, r, d, c1, c2)
+    geom = line_block_geometry(bs, S, bw, blocks.element_size(),
+                               _cuda.sm_count(blocks.device), factored)
+    bulk = geom.bulk and blocks.data_ptr() % 16 == 0
     lib = _cuda.library("line_block")
     code = getattr(lib, fn)(
         blocks.data_ptr(), r.data_ptr(), d.data_ptr(), _cuda.ptr(c1), _cuda.ptr(c2),
-        m, nt, S, bs, _cuda.stream_ptr(blocks.device),
+        m, nt, S, bs, geom.ctas, geom.stages, geom.smem_bytes, int(bulk),
+        _cuda.stream_ptr(blocks.device),
     )
     _cuda.check("line_block", counted, code)
     return d

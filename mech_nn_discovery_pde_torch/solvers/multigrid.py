@@ -241,7 +241,7 @@ class MultigridSolver:
         if self._factored_binv:
             # B^-1 = L^-T L^-1 = W W^T with W = L^-T
             linv = torch.linalg.solve_triangular(L, eye.expand_as(B), upper=False)
-            binv = linv.transpose(-1, -2)
+            binv = linv.transpose(-1, -2).triu()
         else:
             binv = torch.cholesky_solve(eye.expand_as(B), L)
         del B, L

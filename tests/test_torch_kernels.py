@@ -275,6 +275,28 @@ def test_factored_w_matches_jax(gl_level):
     assert rel(lvl["lmax"], g["levels"]["bf16_factored"]["lmax"]) <= 1e-4
 
 
+def test_stored_w_is_exactly_upper_triangular(gl_level):
+    """K3 reads only W's upper triangle, so the stored W must be exactly
+    upper-triangular.  On the CPU the port's stored W (L^-T with `.triu()`)
+    equals the unmasked L^-T of the same blocks bit for bit, and so does the
+    JAX package's W carried across from the fused layout."""
+    g = gl_level
+    mgs = TorchSolver(config=TorchConfig(precision="f64", mg_precond_dtype="bf16_factored"),
+                      device="cpu", **solver_kw(2))
+    w = mgs._level_precond_data(0, g["values"])["binv"]
+    # the unmasked construction: ridge, Cholesky, L^-1, transpose
+    B = mgs.systems[0].assemble_line_blocks(g["values"].to(mgs.pdtype))
+    eye = torch.eye(B.shape[-1], dtype=B.dtype)
+    dmax = torch.diagonal(B, dim1=-2, dim2=-1).max(dim=-1, keepdim=True).values
+    B = B + 1e-6 * torch.clamp(dmax, min=1e-30)[..., None] * eye
+    L, _ = torch.linalg.cholesky_ex(B)
+    linv = torch.linalg.solve_triangular(L, eye.expand_as(B), upper=False)
+    assert torch.equal(w, linv.transpose(-1, -2).to(torch.bfloat16).contiguous())
+    assert torch.equal(w, w.triu())
+    wj = tfs.line_blocks_from_jax(g["w_fused"], g["nt"], g["m"], "fused")
+    assert torch.equal(wj, wj.triu())
+
+
 def test_k3_plain_factored_apply_matches_jax(gl_level):
     """K3's plain apply W (W^T r) on the JAX package's W equals its factored
     `_block_apply` (1e-5), with the Chebyshev epilogue (1e-6)."""
