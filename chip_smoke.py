@@ -4,9 +4,12 @@ Runs the port's main path, the Ginzburg-Landau multigrid training step, and
 holds each hand-written CUDA kernel against its plain PyTorch version:
 
   1. device: requires CUDA; prints the card's name and power limit;
-     builds the kernels (one nvcc per source, in parallel);
+     builds the kernels (one nvcc per source, in parallel) and reads
+     ptxas's report: every K1 instantiation (3 stored types x 6 layouts x
+     2 point widths) must use no stack frame and spill nothing;
   2. kernels vs plain at the GL fine-level and level-1 shapes (bs 32):
-     K1 f32/f64 and its epilogue, K2 and its epilogue, 4-step smoothing
+     K1 f32/f64 and its epilogue (f64 and bf16 fields also in place), K2
+     and its epilogue, 4-step smoothing
      passes (x0 zero / nonzero) with the emitted residual; on the operators
      of the bf16 storage modes (mg_precond_dtype) K3 (factored W) and its
      epilogue, the factored 4-step passes, K1 with bf16 stencil fields and
@@ -19,12 +22,14 @@ holds each hand-written CUDA kernel against its plain PyTorch version:
      the stored W's strict lower triangle must be exactly zero at both
      levels (K3 reads only the upper one); then K2 (f32 and bf16 blocks)
      and K3 with their epilogues at the odd shape bw 42 (the kernels' other
-     load path);
+     load path); then K1 at the five (n_coord, order) layouts GL does not
+     run, in f32, f64 and bf16 fields with its epilogues, at bs 3 (one
+     point a thread) and at bs 2 x SMs (16-byte loads);
   3. layer step at the production config "b30c4rm" (bs 32, (8, 32, 32),
      n_grid 3): forward + IFT backward of sum(u0^2); step time over 5 runs
      on perturbed inputs; FGMRES iterations and rel_rnorm (must be
      <= 3.1e-3); every gradient finite; a torch.profiler capture must show
-     K1 and K2;
+     K1 and K2, and gives each port kernel's device time per step;
   4. layer step "b30c4rmw": the same with mg_precond_dtype='bf16_factored';
      the same bar, and the profile must show K1 and K3 and no K2 (no level
      fell back to the f32 inverse);
@@ -34,8 +39,9 @@ holds each hand-written CUDA kernel against its plain PyTorch version:
   6. trainer: 3 Adam steps of GLDiscovery.loss_fn at the GLConfig defaults
      on GL data generated into data/;
   7. one JSON line {"kernels": [...]} with each kernel's numbers and the
-     launch counts of the run that drives it ("launches_in"), then
-     {"ok": true, "device": {...}} as the last line.
+     launch counts of the run that drives it ("launches_in"); K1 and K1
+     bf16 also carry their level-1 numbers ("*_level1") and K1 its f64
+     ones ("f64_*"); then {"ok": true, "device": {...}} as the last line.
 
 Any failure exits nonzero.  Imports nothing of JAX.
 
@@ -47,6 +53,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -54,10 +61,11 @@ import time
 
 import torch
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, f32 rate outside the
-# tensor cores
+# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, f32 and f64 rates
+# outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_F64_FLOPS = 34e12
 
 
 def log(msg: str) -> None:
@@ -78,10 +86,11 @@ def check(name: str, err: float, tol: float) -> None:
         raise AssertionError(f"{name}: error {err:.3e} above {tol:.0e}")
 
 
-def bound(n_bytes: float, n_flops: float):
+def bound(n_bytes: float, n_flops: float, peak: float = PEAK_F32_FLOPS):
     """(least milliseconds the card could take, what bounds it): the larger
-    of the bytes over the memory rate and the f32 operations over the peak."""
-    t_bytes, t_flops = n_bytes / HBM_BYTES_PER_S, n_flops / PEAK_F32_FLOPS
+    of the bytes over the memory rate and the operations over the peak of
+    their type (f32 unless given)."""
+    t_bytes, t_flops = n_bytes / HBM_BYTES_PER_S, n_flops / peak
     return max(t_bytes, t_flops) * 1e3, "bytes" if t_bytes >= t_flops else "operations"
 
 
@@ -126,6 +135,65 @@ def bench_inputs(layer, bs, dims, seed, device):
     return [t.to(device) for t in (coeffs, rhs, iv)], [s.to(device) for s in steps]
 
 
+# ptxas's name for K1's instantiations: stored type, NCOORD, ORDER, P
+K1_MANGLED = re.compile(r"k1_stencil_applyI(\w+?)Li(\d)ELi(\d)ELi(\d)EE")
+K1_TYPES = {"ff": "f32", "dd": "f64", "13__nv_bfloat16f": "bf16"}
+
+
+def ptxas_report(text: str):
+    """(kernel, registers, stack frame, spill store, spill load bytes) of
+    each entry function in `nvcc -Xptxas -v` output."""
+    rows, cur = [], None
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            cur = [m.group(1)]
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", line)
+        if m and cur and len(cur) == 1:
+            cur += [int(v) for v in m.groups()]
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur and len(cur) == 4:
+            rows.append((cur[0], int(m.group(1)), *cur[1:]))
+            cur = None
+    return rows
+
+
+def check_k1_ptxas(text: str) -> None:
+    """Every K1 instantiation (3 stored types x 6 layouts x 2 point widths)
+    keeps its per-thread arrays in registers: no stack frame, no spills."""
+    seen = {}
+    for name, regs, stack, st, ld in ptxas_report(text):
+        m = K1_MANGLED.search(name)
+        if m:
+            seen[(K1_TYPES[m.group(1)], int(m.group(2)), int(m.group(3)), int(m.group(4)))] = (
+                regs, stack, st, ld)
+    for (t, nc, o, P), (regs, stack, st, ld) in sorted(seen.items()):
+        log(f"  ptxas K1 {t} n_coord {nc} order {o} P {P}: {regs} registers, {stack} B stack "
+            f"frame, {st} B spill stores, {ld} B spill loads")
+    bad = [k for k, v in seen.items() if any(v[1:])]
+    if len(seen) != 36 or bad:
+        raise AssertionError(f"K1 ptxas: {len(seen)} instantiations of 36, with stack or "
+                             f"spills: {bad}")
+
+
+def check_k1_epilogues(label, desc, coef, x, b, tol):
+    """K1's residual and iterate epilogues against the plain version, apart
+    and in place (out = rin, xout = xin, as the smoothing pass runs it)."""
+    from mech_nn_discovery_pde_torch.ops import normal_stencil as ns
+
+    xo_k, xo_p = torch.empty_like(x), torch.empty_like(x)
+    r_k = ns.stencil_apply(desc, coef, x, rin=b, xin=b, xout=xo_k)
+    r_p = ns.stencil_apply_plain(desc, coef, x, rin=b, xin=b, xout=xo_p)
+    check(f"{label} residual epilogue", rel_err(r_k, r_p), tol)
+    check(f"{label} iterate epilogue", rel_err(xo_k, xo_p), tol)
+    r, xi = b.clone(), b.clone()
+    ns.stencil_apply(desc, coef, x, rin=r, out=r, xin=xi, xout=xi)
+    check(f"{label} epilogues in place", max(rel_err(r, r_p), rel_err(xi, xo_p)), tol)
+
+
 def stencil_csr(desc, coef):
     """The assembled AtA of every sample as one block-diagonal sparse CSR
     matrix over the flat point-major vector: the library yardstick for K1
@@ -158,6 +226,7 @@ def stencil_csr(desc, coef):
 
 def phase_kernels(layer, hier, values, dev, seed):
     """Phase 2: every kernel against its plain version at the GL shapes."""
+    from mech_nn_discovery_pde_torch.ops import _cuda
     from mech_nn_discovery_pde_torch.ops import fused_smoother as fs
     from mech_nn_discovery_pde_torch.ops import normal_stencil as ns
     from mech_nn_discovery_pde_torch.solvers.multigrid import MultigridSolver
@@ -202,6 +271,10 @@ def phase_kernels(layer, hier, values, dev, seed):
         x64 = x.double()
         e64 = rel_err(ns.stencil_apply(desc, coef64, x64), ns.stencil_apply_plain(desc, coef64, x64))
         check(f"K1 f64 apply (level {k})", e64, 1e-12)
+        check_k1_epilogues(f"K1 f64 (level {k})", desc, coef64, x64, b.double(), 1e-12)
+        geo = {n: ns.stencil_geometry(N, bs, t.element_size(), _cuda.sm_count(dev))
+               for n, t in (("f32", x), ("f64", x64))}
+        log(f"  K1 geometry (level {k}): {geo}")
 
         # ---- K2 plain block apply and the Chebyshev-update epilogue
         t_k = fs.block_apply(binv, x, nt)
@@ -264,6 +337,7 @@ def phase_kernels(layer, hier, values, dev, seed):
         y16_k = ns.stencil_apply(desc, coef16, x)
         y16_p = ns.stencil_apply_plain(desc, coef16, x)
         check(f"K1 bf16-field apply (level {k})", rel_err(y16_k, y16_p), 1e-5)
+        check_k1_epilogues(f"K1 bf16-field (level {k})", desc, coef16, x, b, 1e-5)
         t16_k = fs.block_apply(binv16, x, nt)
         t16_p = fs.block_apply_plain(binv16, x, nt)
         check(f"K2 bf16-inverse apply (level {k})", rel_err(t16_k, t16_p), 1e-5)
@@ -337,10 +411,25 @@ def phase_kernels(layer, hier, values, dev, seed):
             "k1_bf16": (abs_err(y16_k, y16_p), t_k1b, t_k1bp, k1b_bound, k1b_by, t_k1blib),
             "k2_bf16": (abs_err(t16_k, t16_p), t_k2b, t_k2bp, k2b_bound, k2b_by, t_k2blib),
         }
+        # K1 f64: per launch, back to back, and its own bound (8-byte values)
+        y64 = torch.empty_like(x64)
+        t_k1_64b = time_ms_back_to_back(lambda: ns.stencil_apply(desc, coef64, x64, out=y64))
+        k1d_bound, _ = bound(8 * (NC + 2 * m) * N * bs, 2 * (m * m + 2 * nb) * N * bs,
+                             PEAK_F64_FLOPS)
+        log(f"  K1 f64 {t_k1_64:.4f} ms, back to back {t_k1_64b:.4f} ms (bound {k1d_bound:.4f})")
         if k == 0:  # level 0 enters the report
             for key, (err, ms, plain, bnd, by, lib) in rows.items():
                 report[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
                                    bound_by=by, library_ms=lib, ms_back_to_back=b2b[key])
+        # K1's level-1 numbers and its f64 ones beside them
+        sfx = "" if k == 0 else "_level1"
+        if k == 1:
+            for key in ("k1", "k1_bf16"):
+                _, ms, _, bnd, _, _ = rows[key]
+                report[key].update({"ms_level1": ms, "ms_back_to_back_level1": b2b[key],
+                                    "bound_ms_level1": bnd})
+        report["k1"].update({f"f64_ms{sfx}": t_k1_64, f"f64_ms_back_to_back{sfx}": t_k1_64b,
+                             f"f64_bound_ms{sfx}": k1d_bound})
         del lw, lb, W, coef16, binv16
     return report
 
@@ -377,6 +466,57 @@ def phase_odd_shape(dev, seed, bs=2, nt=6, m=7, S=144):
         plain(blocks, x, nt, d=d_p, c1=c1, c2=c2)
         check(f"{name} Chebyshev epilogue (bw {bw})", rel_err(d_k, d_p), 1e-5)
     torch.cuda.synchronize()
+
+
+# the (n_coord, order) layouts GL (3, 2) does not run, as small systems
+K1_SMALL = (((40,), 1), ((40,), 2), ((24, 20), 1), ((24, 20), 2), ((6, 8, 10), 1))
+K1_SMALL_IVS = {
+    1: [lambda nt: (0, 0, [0], [0])],
+    2: [lambda nt, nx: (0, 0, [0, 0], [0, nx - 1]),
+        lambda nt, nx: (1, 1, [1, 0], [nt - 1, 0])],
+    3: [lambda nt, nx, ny: (0, 0, [0, 0, 0], [0, nx - 1, ny - 1]),
+        lambda nt, nx, ny: (1, 0, [1, 0, 0], [nt - 1, 0, ny - 1])],
+}
+
+
+def phase_k1_layouts(dev, seed):
+    """Phase 2c: K1 at the five (n_coord, order) layouts GL does not run,
+    against its plain version in f32 (1e-5), f64 (1e-12) and bf16 fields
+    (1e-5), apply and epilogues.  Each system (the port's ops/system.py,
+    random values from --seed) runs at bs 3, where the geometry takes one
+    point a thread, and at bs 2 x SMs, where it takes 16-byte loads; both
+    widths must be seen for every stored type."""
+    from mech_nn_discovery_pde_torch.ops import _cuda
+    from mech_nn_discovery_pde_torch.ops import normal_stencil as ns
+    from mech_nn_discovery_pde_torch.ops.system import PDESystem
+
+    g = torch.Generator(device=dev).manual_seed(seed + 3)
+    n_sm = _cuda.sm_count(dev)
+    widths = set()
+    for dims, order in K1_SMALL:
+        sy = PDESystem.build(dims, order=order, init_index_mi_list=K1_SMALL_IVS[len(dims)],
+                             step_size=0.1)
+        desc = ns.make_desc(sy.spec)
+        N, m = desc.grid_size, desc.n_mi
+        for bs in (3, 2 * n_sm):
+            v = torch.randn((bs, sy.n_entries), generator=g, device=dev, dtype=torch.float64)
+            coef64 = ns.build_normal_coef(sy.spec, desc, sy.split_values(v))
+            x64 = torch.randn((bs, N * m), generator=g, device=dev, dtype=torch.float64)
+            b64 = torch.randn((bs, N * m), generator=g, device=dev, dtype=torch.float64)
+            for name, cdt, xdt, tol in (("f32", torch.float32, torch.float32, 1e-5),
+                                        ("f64", torch.float64, torch.float64, 1e-12),
+                                        ("bf16", torch.bfloat16, torch.float32, 1e-5)):
+                coef, x, b = coef64.to(cdt).contiguous(), x64.to(xdt), b64.to(xdt)
+                geo = ns.stencil_geometry(N, bs, x.element_size(), n_sm)
+                widths.add((name, geo.P > 1))
+                label = f"K1 {name} {dims} order {order} bs {bs} P {geo.P}"
+                check(f"{label} apply", rel_err(ns.stencil_apply(desc, coef, x),
+                                                ns.stencil_apply_plain(desc, coef, x)), tol)
+                check_k1_epilogues(label, desc, coef, x, b, tol)
+        torch.cuda.synchronize()
+    if len(widths) != 6:
+        raise AssertionError(f"K1 layouts: point widths seen {sorted(widths)}, want both for "
+                             f"every stored type")
 
 
 # CUPTI overhead records (host blocked on a full launch queue, trace buffer
@@ -503,6 +643,9 @@ def phase_layer(seed, dev, precond="f32", bs=32, dims=(8, 32, 32)):
         f"idle share {max(0.0, 1 - busy_us / 1e6 / dt):.3f} of the unprofiled median step")
     for name, (us, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
         log(f"  {us / 1e3:10.3f} ms  x{c:6d}  {name[:90]}")
+    # a kernel's instantiations together (K1: one per layout and point width)
+    log("profiler: device ms per step by kernel: " + ", ".join(
+        f"{n} {sum(us for e, (us, _) in by_name.items() if n in e) / 1e3:.3f}" for n in names))
     for n, c in names.items():
         want = n in ("k1_stencil_apply", block)
         if want and c == 0:
@@ -593,8 +736,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    _cuda.build(verbose=True)
+    outs = _cuda.build(ptxas=True)
     log(f"kernels built in {time.perf_counter() - t0:.1f} s (nvcc {_cuda.nvcc_path()})")
+    log(outs.get("line_block", "").rstrip())
+    if "stencil_apply" in outs:  # built in this run: read ptxas's report
+        check_k1_ptxas(outs["stencil_apply"])
 
     # phase 2 needs a real hierarchy: build it with the layer of phase 3
     from mech_nn_discovery_pde_torch.config import PDEConfig
@@ -614,6 +760,7 @@ def main() -> int:
         f"{float(hier['levels'][0]['lmax'].min()):.4f}..{float(hier['levels'][0]['lmax'].max()):.4f}")
     report = phase_kernels(layer, hier, values.detach(), dev, args.seed)
     phase_odd_shape(dev, args.seed)
+    phase_k1_layouts(dev, args.seed)
     del layer, hier, values
     torch.cuda.empty_cache()
 

@@ -41,10 +41,13 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
+    # coef, x, the layout (n_coord, order, s0, s1; ops/normal_stencil.
+    # k1_layout_args), (N, bs), the launch geometry (P, threads, grid_x;
+    # ops/normal_stencil.stencil_geometry), rin, out, xin, xout, stream
     "stencil_apply": {
-        "k1_stencil_apply_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
-        "k1_stencil_apply_f64": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
-        "k1_stencil_apply_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+        "k1_stencil_apply_f32": [_P] * 2 + [_I] * 9 + [_P] * 5,
+        "k1_stencil_apply_f64": [_P] * 2 + [_I] * 9 + [_P] * 5,
+        "k1_stencil_apply_bf16": [_P] * 2 + [_I] * 9 + [_P] * 5,
     },
     # operands, (m, nt, S, bs), the launch geometry (ctas, stages,
     # smem_bytes, bulk; ops/fused_smoother.line_block_geometry), stream
@@ -75,32 +78,34 @@ def _stale(name: str) -> bool:
     return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
 
 
-def build(names: Iterable[str] = tuple(SOURCES), verbose: bool = False) -> None:
+def build(names: Iterable[str] = tuple(SOURCES), ptxas: bool = False) -> Dict[str, str]:
     """Compile every stale library in `names`, one nvcc per source, all
-    started together.  Raises with nvcc's output on failure."""
+    started together.  Returns nvcc's output by library built, with `ptxas`
+    also ptxas's report of each kernel (registers, stack frame, spills).
+    Raises with nvcc's output on failure."""
     todo = [n for n in names if _stale(n)]
     if not todo:
-        return
+        return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     procs = {}
     for n in todo:
         tmp = _lib_path(n).with_suffix(f".so.tmp{os.getpid()}")
-        cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+        cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if ptxas else []),
                "-o", str(tmp), str(CSRC / SOURCES[n])]
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True), tmp)
-    failed = []
+    failed, outs = [], {}
     for n, (p, tmp) in procs.items():
         out, _ = p.communicate()
-        if verbose and out:
-            print(out, end="")
+        outs[n] = out
         if p.returncode != 0:
             failed.append(f"nvcc {SOURCES[n]} failed ({p.returncode}):\n{out}")
         else:
             os.replace(tmp, _lib_path(n))
     if failed:
         raise RuntimeError("\n".join(failed))
+    return outs
 
 
 def library(name: str) -> ctypes.CDLL:
@@ -133,7 +138,10 @@ def ptr(t) -> int | None:
 
 
 def stream_ptr(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The current stream of a CUDA device, as the raw pointer a launcher
+    takes (without building a torch.cuda.Stream object on every launch)."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(idx)
 
 
 _SM_COUNT: Dict[int, int] = {}

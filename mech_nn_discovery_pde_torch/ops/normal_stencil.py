@@ -23,7 +23,10 @@ launches kernel K1 (csrc/stencil_apply.cu), which replaces the TPU kernel
 `_stencil_kernel_body` of mech_nn_discovery_pde_tpu/ops/normal_stencil.py;
 on CPU tensors it runs `stencil_apply_plain`, the same gather form written
 as a few whole-tensor PyTorch gathers.  Both carry the same epilogue
-(residual update, iterate update).
+(residual update, iterate update).  K1 is compiled for each (n_coord,
+order) layout (`K1_LAYOUTS`) with every channel index a constant;
+`k1_layout_args` checks a descriptor against that layout before the first
+launch, and `stencil_geometry` picks the points per thread and the grid.
 The stored fields may be bfloat16 (mg_precond_dtype='bf16') with float32
 vectors: K1 widens each coefficient in-register, the plain version upcasts
 the fields first; every sum is float32.
@@ -290,18 +293,84 @@ def stencil_apply_plain(
     return _epilogue(y, rin, out, x, xin, xout)
 
 
-_BANDS: Dict[Tuple[NormalStencilDesc, str], torch.Tensor] = {}
+# (n_coord, order) pairs K1 is instantiated for: every pair VariableSet takes
+K1_LAYOUTS = ((1, 1), (1, 2), (2, 1), (2, 2), (3, 1), (3, 2))
 
 
-def band_table(desc: NormalStencilDesc, device) -> torch.Tensor:
-    """(n_bands, 4) int32 table (channel, stride, ci, cj) on `device`."""
-    key = (desc, str(device))
-    t = _BANDS.get(key)
-    if t is None:
-        rows = [(b.ch, b.stride) + _band_channels(b) for b in desc.bands]
-        t = torch.tensor(rows, dtype=torch.int32, device=device).reshape(-1, 4)
-        _BANDS[key] = t
-    return t
+def k1_band_layout(n_coord: int, order: int) -> Tuple[Tuple[int, int, str, int, int], ...]:
+    """K1's compile-time channel layout: (coord, delta, kind, mi_k, ch) of
+    every band, in `make_desc`'s order.  Axis c's bands at offset delta
+    start at channel m*m + (4c + delta - 1)(1 + 2 order) with vv, then
+    (vd_k, dv_k) for each k over central_mi_indices(c) = 1 + c + k n_coord.
+    Raises ValueError for a pair K1 is not instantiated for."""
+    if (n_coord, order) not in K1_LAYOUTS:
+        raise ValueError(f"K1: no layout for n_coord={n_coord}, order={order} "
+                         f"(instantiated: {K1_LAYOUTS})")
+    m = 1 + n_coord * order
+    per = 1 + 2 * order
+    out = []
+    for c in range(n_coord):
+        for delta in range(1, MAX_DELTA + 1):
+            ch = m * m + (c * MAX_DELTA + delta - 1) * per
+            out.append((c, delta, "vv", 0, ch))
+            for k in range(order):
+                mik = 1 + c + k * n_coord
+                out.append((c, delta, "vd", mik, ch + 1 + 2 * k))
+                out.append((c, delta, "dv", mik, ch + 2 + 2 * k))
+    return tuple(out)
+
+
+def k1_layout_args(desc: NormalStencilDesc) -> Tuple[int, int, int, int]:
+    """(n_coord, order, s0, s1): the layout K1 is instantiated for and the
+    flat strides of axes 0 and 1 where they are not the last (0 otherwise;
+    the last axis has stride 1).  Checks that the descriptor's bands are
+    K1's compile-time layout; raises ValueError if not."""
+    n_coord, m = len(desc.coord_dims), desc.n_mi
+    order = (m - 1) // n_coord
+    if 1 + n_coord * order != m:
+        raise ValueError(f"K1: n_mi={m} is no layout of {n_coord} axes")
+    layout = k1_band_layout(n_coord, order)
+    strides = _point_strides(desc.coord_dims)
+    got = [(b.coord, b.delta, b.kind, b.mi_k, b.ch) for b in desc.bands]
+    if (got != list(layout) or desc.n_channels != m * m + len(layout)
+            or desc.grid_size != int(np.prod(desc.coord_dims))
+            or any(b.stride != b.delta * strides[b.coord] for b in desc.bands)):
+        raise ValueError("K1: the descriptor's bands are not K1's compile-time layout "
+                         "(make_desc's channel order)")
+    s = [int(strides[c]) for c in range(n_coord - 1)] + [0, 0]
+    return n_coord, order, s[0], s[1]
+
+
+K1_THREADS = 128  # threads per CTA, csrc/stencil_apply.cu kThreads
+
+
+class StencilGeometry(NamedTuple):
+    P: int  # consecutive points per thread
+    threads: int  # threads per CTA
+    grid: Tuple[int, int]  # (CTAs per sample, samples)
+
+
+def stencil_geometry(N: int, bs: int, itemsize: int, n_sm: int,
+                     aligned: bool = True) -> StencilGeometry:
+    """K1's launch geometry for bs samples of N points with vectors of
+    `itemsize` bytes (4: f32, also with bf16 fields; 8: f64) on a card of
+    `n_sm` SMs.  Thread t of CTA (i, b) takes the P points
+    (i * threads + t) * P + q, q < P, of sample b that lie below N.
+
+    P = 16 // itemsize (16-byte loads) where the rows allow it (N % P == 0
+    and `aligned`: every operand 16-byte aligned) and the grid then still
+    gives every SM two CTAs; else P = 1 (the GL level-1 shape)."""
+    if min(N, bs, n_sm) < 1 or itemsize not in (4, 8):
+        raise ValueError(f"stencil_geometry: bad shape N={N} bs={bs} itemsize={itemsize} "
+                         f"n_sm={n_sm}")
+
+    def ctas(P):
+        return -(-N // (P * K1_THREADS))
+
+    P = 16 // itemsize
+    if not aligned or N % P or ctas(P) * bs < 2 * n_sm:
+        P = 1
+    return StencilGeometry(P, K1_THREADS, (ctas(P), bs))
 
 
 def stencil_apply(
@@ -336,33 +405,52 @@ _K1_FN = {
 }
 
 
+_K1_PLANS: Dict[tuple, tuple] = {}
+
+
+def _k1_plan(desc, coef, x):
+    """K1's launch for operands of these shapes, dtypes and device, checked
+    once and cached: (launcher, launch-count name, k1_layout_args, the
+    geometry for 16-byte aligned operands)."""
+    key = (desc, coef.shape, x.shape, coef.dtype, x.dtype, coef.device)
+    plan = _K1_PLANS.get(key)
+    if plan is None:
+        bs, NC, N = coef.shape
+        m = desc.n_mi
+        if (NC, N) != (desc.n_channels, desc.grid_size) or tuple(x.shape) != (bs, N * m):
+            raise ValueError(
+                f"stencil_apply: coef {tuple(coef.shape)} / x {tuple(x.shape)} do not "
+                f"match the descriptor (NC={desc.n_channels}, N={desc.grid_size}, m={m})"
+            )
+        fn = _K1_FN.get((coef.dtype, x.dtype))
+        if fn is None:
+            raise ValueError(f"stencil_apply: K1 takes coef/x float32/float32, float64/float64 "
+                             f"or bfloat16/float32, got {coef.dtype}/{x.dtype}")
+        layout = k1_layout_args(desc)
+        geo = stencil_geometry(N, bs, x.element_size(), _cuda.sm_count(coef.device))
+        plan = _K1_PLANS[key] = (*fn, layout, geo)
+    return plan
+
+
 def _stencil_apply_k1(desc, coef, x, rin, out, xin, xout):
-    bs, NC, N = coef.shape
-    m = desc.n_mi
-    if (NC, N) != (desc.n_channels, desc.grid_size) or tuple(x.shape) != (bs, N * m):
-        raise ValueError(
-            f"stencil_apply: coef {tuple(coef.shape)} / x {tuple(x.shape)} do not "
-            f"match the descriptor (NC={desc.n_channels}, N={desc.grid_size}, m={m})"
-        )
-    fn = _K1_FN.get((coef.dtype, x.dtype))
-    if fn is None:
-        raise ValueError(f"stencil_apply: K1 takes coef/x float32/float32, float64/float64 "
-                         f"or bfloat16/float32, got {coef.dtype}/{x.dtype}")
+    launcher, counted, (n_coord, order, s0, s1), geo = _k1_plan(desc, coef, x)
     if out is None:
         out = torch.empty_like(x)
     for t in (rin, out, xin, xout):
-        if t is not None and (t.dtype != x.dtype or tuple(t.shape) != tuple(x.shape)):
+        if t is not None and (t.dtype != x.dtype or t.shape != x.shape):
             raise ValueError("stencil_apply: epilogue operand dtype/shape mismatch")
     for t in (out, xout):
         if t is not None and t.data_ptr() == x.data_ptr():
             raise ValueError("stencil_apply: outputs must not alias x (read at neighbours)")
-    bands = band_table(desc, coef.device)
-    _cuda.require_cuda(coef, x, rin, out, xin, xout, bands)
-    lib = _cuda.library("stencil_apply")
-    launcher, counted = fn
-    code = getattr(lib, launcher)(
-        coef.data_ptr(), x.data_ptr(), bands.data_ptr(), len(desc.bands), m, N, NC, bs,
-        _cuda.ptr(rin), out.data_ptr(), _cuda.ptr(xin), _cuda.ptr(xout),
+    ops = (coef, x, rin, out, xin, xout)
+    _cuda.require_cuda(*ops)
+    bs, _, N = coef.shape
+    if geo.P > 1 and any(t.data_ptr() % 16 for t in ops if t is not None):
+        geo = stencil_geometry(N, bs, x.element_size(), _cuda.sm_count(coef.device),
+                               aligned=False)
+    code = getattr(_cuda.library("stencil_apply"), launcher)(
+        coef.data_ptr(), x.data_ptr(), n_coord, order, s0, s1, N, bs, geo.P, geo.threads,
+        geo.grid[0], _cuda.ptr(rin), out.data_ptr(), _cuda.ptr(xin), _cuda.ptr(xout),
         _cuda.stream_ptr(coef.device),
     )
     _cuda.check("stencil_apply", counted, code)

@@ -60,7 +60,7 @@ def rel(a, b):
 
 @pytest.mark.parametrize("dims,order,n_iv", [
     ((9,), 2, 1), ((12,), 2, 3), ((7, 9), 2, 1), ((6, 8), 1, 1), ((8, 6), 2, 2),
-    ((6, 7, 8), 2, 1),
+    ((6, 7, 8), 2, 1), ((10,), 1, 1), ((6, 7, 8), 1, 1),
 ])
 def test_normal_coef_and_k1_plain_match_jax(dims, order, n_iv):
     """Assembled stencil fields equal the JAX package's; K1's plain apply
@@ -116,6 +116,107 @@ def test_k1_epilogue_semantics():
     xz = torch.empty_like(x)
     tns.stencil_apply(desc, coef, x, xout=xz)
     assert torch.equal(xz, x)
+
+
+LAYOUT_DIMS = {1: (10,), 2: (7, 9), 3: (6, 7, 8)}
+
+
+@pytest.mark.parametrize("n_coord,order", tns.K1_LAYOUTS)
+def test_k1_layout_matches_make_desc(n_coord, order):
+    """K1's compile-time channel layout is `make_desc`'s band order for every
+    (n_coord, order) it is instantiated for; the wrapper's check passes it
+    and returns the strides of the axes before the last."""
+    dims = LAYOUT_DIMS[n_coord]
+    desc = tns.make_desc(TorchSystem.build(dims, order=order, init_index_mi_list=IVS[n_coord]).spec)
+    got = tuple((b.coord, b.delta, b.kind, b.mi_k, b.ch) for b in desc.bands)
+    assert got == tns.k1_band_layout(n_coord, order)
+    assert desc.n_channels == desc.n_mi**2 + len(got)
+    strides = [int(np.prod(dims[c + 1:])) for c in range(n_coord - 1)]
+    assert tns.k1_layout_args(desc) == (n_coord, order, *(strides + [0, 0])[:2])
+
+
+def test_k1_layout_check_raises():
+    """A descriptor whose bands are permuted, or a layout K1 has no
+    instantiation for, raises ValueError, and the wrapper raises it before
+    it builds or launches anything (here on CPU tensors, which the launch
+    would refuse with another message)."""
+    tsys = TorchSystem.build((6, 7, 8), order=2, init_index_mi_list=IVS[3])
+    desc = tns.make_desc(tsys.spec)
+    bands = list(desc.bands)
+    bands[3], bands[4] = bands[4], bands[3]  # vd_0 <-> dv_0 of axis 0, offset 1
+    swapped = desc._replace(bands=tuple(bands))
+    with pytest.raises(ValueError, match="compile-time layout"):
+        tns.k1_layout_args(swapped)
+    moved = desc._replace(bands=tuple(b._replace(ch=b.ch + 1) if b.coord == 2 else b
+                                      for b in desc.bands))
+    with pytest.raises(ValueError, match="compile-time layout"):
+        tns.k1_layout_args(moved)
+    for n_coord, order in ((4, 1), (3, 3), (0, 1)):
+        with pytest.raises(ValueError, match="no layout"):
+            tns.k1_band_layout(n_coord, order)
+    with pytest.raises(ValueError, match="no layout"):
+        tns.k1_layout_args(desc._replace(coord_dims=(6, 7, 8, 2), n_mi=9))
+    coef = torch.zeros((1, desc.n_channels, desc.grid_size))
+    x = torch.zeros((1, desc.grid_size * desc.n_mi))
+    with pytest.raises(ValueError, match="compile-time layout"):
+        tns._stencil_apply_k1(swapped, coef, x, None, None, None, None)
+
+
+H100_SMS = 132
+GEOMETRY_CASES = {
+    # N, bs, vector itemsize, SMs, operands aligned
+    "gl-fine-f32": (8192, 32, 4, H100_SMS, True),
+    "gl-fine-f64": (8192, 32, 8, H100_SMS, True),
+    "gl-level1-f32": (2048, 32, 4, H100_SMS, True),
+    "gl-level1-f64": (2048, 32, 8, H100_SMS, True),
+    "gl-fine-unaligned": (8192, 32, 4, H100_SMS, False),
+    "small-3d-bs3": (480, 3, 4, H100_SMS, True),
+    "small-1d-wide-batch": (40, 300, 4, H100_SMS, True),
+    "odd-n": (6 * 7 * 9, 300, 4, H100_SMS, True),
+    "n-2-mod-4-f32": (6 * 7 * 11, 400, 4, H100_SMS, True),
+    "n-2-mod-4-f64": (6 * 7 * 11, 400, 8, H100_SMS, True),
+    "tiny": (7, 1, 8, 2, True),
+}
+
+
+@pytest.mark.parametrize("case", list(GEOMETRY_CASES))
+def test_stencil_geometry_covers_each_point_once(case):
+    """K1's geometry: thread t of CTA (i, b) takes the points
+    (i * threads + t) * P + q, q < P, of sample b when its first point lies
+    below N (csrc/stencil_apply.cu).  That covers every point of every
+    sample exactly once and nothing past N, with no CTA idle; P > 1 only
+    with 16-byte loads on rows whose length it divides."""
+    N, bs, itemsize, n_sm, aligned = GEOMETRY_CASES[case]
+    geo = tns.stencil_geometry(N, bs, itemsize, n_sm, aligned)
+    gx, gy = geo.grid
+    assert gy == bs and geo.threads == tns.K1_THREADS
+    i, t, q = np.meshgrid(np.arange(gx), np.arange(geo.threads), np.arange(geo.P), indexing="ij")
+    p0 = (i * geo.threads + t) * geo.P
+    pts = (p0 + q)[p0 < N]
+    assert np.array_equal(np.sort(pts), np.arange(N))  # each point once, none past N
+    assert (gx - 1) * geo.threads * geo.P < N  # the last CTA has work
+    if geo.P > 1:
+        assert aligned and N % geo.P == 0 and geo.P * itemsize == 16
+    else:
+        assert geo.P == 1
+
+
+def test_stencil_geometry_fills_the_card():
+    """16-byte loads at the GL fine level (f32: 4 points a thread, f64: 2);
+    at GL level 1, where those would leave SMs with one CTA, one point a
+    thread and at least two CTAs on every SM; one point a thread wherever
+    the rows or the operands do not allow 16-byte loads."""
+    assert tns.stencil_geometry(8192, 32, 4, H100_SMS).P == 4
+    assert tns.stencil_geometry(8192, 32, 8, H100_SMS).P == 2
+    for itemsize in (4, 8):
+        geo = tns.stencil_geometry(2048, 32, itemsize, H100_SMS)
+        assert geo.P == 1 and geo.grid[0] * geo.grid[1] >= 2 * H100_SMS
+    assert tns.stencil_geometry(8192, 32, 4, H100_SMS, aligned=False).P == 1
+    assert tns.stencil_geometry(6 * 7 * 9, 300, 4, H100_SMS).P == 1
+    with pytest.raises(ValueError, match="bad shape"):
+        tns.stencil_geometry(0, 32, 4, H100_SMS)
+    with pytest.raises(ValueError, match="bad shape"):
+        tns.stencil_geometry(8192, 32, 2, H100_SMS)
 
 
 GL_DIMS = (6, 12, 12)
