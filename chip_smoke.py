@@ -1,12 +1,15 @@
 """Chip smoke test of the PyTorch port on one NVIDIA GPU (H100).
 
-Runs the port's main path, the Ginzburg-Landau multigrid training step, and
-holds each hand-written CUDA kernel against its plain PyTorch version:
+Runs the port's main paths (the Ginzburg-Landau multigrid training step;
+the dense path: entry(), Burgers discovery, the sine fit; the transport
+examples) and holds each hand-written CUDA kernel against its plain PyTorch
+version:
 
   1. device: requires CUDA; prints the card's name and power limit;
      builds the kernels (one nvcc per source, in parallel) and reads
      ptxas's report: every K1 instantiation (3 stored types x 6 layouts x
-     2 point widths) must use no stack frame and spill nothing;
+     2 point widths) and the six line_block.cu kernels must use no stack
+     frame and spill nothing;
   2. kernels vs plain at the GL fine-level and level-1 shapes (bs 32):
      K1 f32/f64 and its epilogue (f64 and bf16 fields also in place), K2
      and its epilogue, 4-step smoothing
@@ -24,7 +27,17 @@ holds each hand-written CUDA kernel against its plain PyTorch version:
      and K3 with their epilogues at the odd shape bw 42 (the kernels' other
      load path); then K1 at the five (n_coord, order) layouts GL does not
      run, in f32, f64 and bf16 fields with its epilogues, at bs 3 (one
-     point a thread) and at bs 2 x SMs (16-byte loads);
+     point a thread) and at bs 2 x SMs (16-byte loads); K1 f64 also beside
+     its plain version and a float64 CSR sparse product at both levels;
+     then K2 (f32 and bf16) and K3 at time-line blocks wider than one CTA's
+     shared memory holds (bw 280 and 350, timed beside their bounds, also
+     on 4 x as many lines, beyond L2; bw 245 and 345, whose blocks are
+     aligned to 4 or 2 bytes: the kernels' row-tiled path and each of its
+     load units) against their plain versions; then K1 f64 (1e-12), K1 f32
+     and K2 (1e-5) with their epilogues, and a smoothing pass, at the
+     transport multigrid example's shapes (its hierarchy: bs 5, (8, 512),
+     m 5, bw 40; levels 0 and 1), each timed beside its plain version, a
+     library call and its bound;
   3. layer step at the production config "b30c4rm" (bs 32, (8, 32, 32),
      n_grid 3): forward + IFT backward of sum(u0^2); step time over 5 runs
      on perturbed inputs; FGMRES iterations and rel_rnorm (must be
@@ -38,10 +51,28 @@ holds each hand-written CUDA kernel against its plain PyTorch version:
      bar (the mode is quality-fatal at GL scale);
   6. trainer: 3 Adam steps of GLDiscovery.loss_fn at the GLConfig defaults
      on GL data generated into data/;
-  7. one JSON line {"kernels": [...]} with each kernel's numbers and the
+  7. dense path: entry()'s f32_ir forward (Burgers (32, 32), bs 10) within
+     1e-6 of the same inputs solved in f64, its rel_rnorm, forward and
+     forward + IFT backward medians of 5, one profile;
+  8. Burgers trainer: 3 Adam steps at the BurgersConfig defaults (the full
+     128 x 256 field through the width-128, depth-12 ResNet, bs 10 f32_ir
+     solves), finite loss, step times and each solve's rel_rnorm;
+  9. sine fit: 25 epochs with f64 solves; the last loss below 0.2 x the
+     first;
+ 10. transport: both examples' main(); interior advection error <= 3.0e-2
+     (multigrid: (8, 512), n_grid 6, f64 outer FGMRES with K1 f64, K1 f32
+     and K2 at bw 40 in the V-cycle) and <= 2.5e-2 (dense); one multigrid
+     window profiled to count K1 f64, K1 f32 and K2 launches;
+ 11. one JSON line {"kernels": [...]} with each kernel's numbers and the
      launch counts of the run that drives it ("launches_in"); K1 and K1
      bf16 also carry their level-1 numbers ("*_level1") and K1 its f64
-     ones ("f64_*"); then {"ok": true, "device": {...}} as the last line.
+     ones ("f64_*"); K1 f64 is also an entry of its own, counted on the
+     transport multigrid path, with its numbers at that path's shapes and
+     its GL-shape ones beside them ("gl_shapes"); K1 and K2 carry their
+     transport-shape numbers ("transport"); K2, K2 bf16 and K3 carry their
+     wide-block rows ("wide_blocks"); then {"ok": true, "device": {...}} as the last
+     line.  The script turns TF32 off for matmuls and cuDNN, so every
+     product and convolution here runs in full float32.
 
 Any failure exits nonzero.  Imports nothing of JAX.
 
@@ -53,6 +84,8 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import logging
+import math
 import re
 import statistics
 import subprocess
@@ -177,6 +210,18 @@ def check_k1_ptxas(text: str) -> None:
     if len(seen) != 36 or bad:
         raise AssertionError(f"K1 ptxas: {len(seen)} instantiations of 36, with stack or "
                              f"spills: {bad}")
+
+
+def check_line_block_ptxas(text: str) -> None:
+    """The six line_block.cu kernels (K2 f32 and bf16, K3; streamed and
+    row-tiled) keep everything in registers: no stack frame, no spills."""
+    rows = [r for r in ptxas_report(text) if re.search(r"k[23]_\w*line_block_apply", r[0])]
+    for name, regs, stack, st, ld in rows:
+        kern = re.search(r"(k[23]_\w*line_block_apply\w*?)(I|E)", name).group(1)
+        log(f"  ptxas {kern}{' bf16' if 'bfloat16' in name else ''}: {regs} registers, "
+            f"{stack} B stack frame, {st} B spill stores, {ld} B spill loads")
+    if len(rows) != 6 or any(any(r[2:]) for r in rows):
+        raise AssertionError(f"line_block ptxas: {len(rows)} kernels of 6, rows {rows}")
 
 
 def check_k1_epilogues(label, desc, coef, x, b, tol):
@@ -411,12 +456,23 @@ def phase_kernels(layer, hier, values, dev, seed):
             "k1_bf16": (abs_err(y16_k, y16_p), t_k1b, t_k1bp, k1b_bound, k1b_by, t_k1blib),
             "k2_bf16": (abs_err(t16_k, t16_p), t_k2b, t_k2bp, k2b_bound, k2b_by, t_k2blib),
         }
-        # K1 f64: per launch, back to back, and its own bound (8-byte values)
+        # K1 f64: per launch, back to back, and its own bound (8-byte values);
+        # its plain version and a CSR sparse product in f64 beside it
         y64 = torch.empty_like(x64)
         t_k1_64b = time_ms_back_to_back(lambda: ns.stencil_apply(desc, coef64, x64, out=y64))
-        k1d_bound, _ = bound(8 * (NC + 2 * m) * N * bs, 2 * (m * m + 2 * nb) * N * bs,
-                             PEAK_F64_FLOPS)
-        log(f"  K1 f64 {t_k1_64:.4f} ms, back to back {t_k1_64b:.4f} ms (bound {k1d_bound:.4f})")
+        k1d_bound, k1d_by = bound(8 * (NC + 2 * m) * N * bs, 2 * (m * m + 2 * nb) * N * bs,
+                                  PEAK_F64_FLOPS)
+        y64_p = ns.stencil_apply_plain(desc, coef64, x64)
+        err64 = abs_err(ns.stencil_apply(desc, coef64, x64, out=y64), y64_p)
+        t_k1_64p = time_ms(lambda: ns.stencil_apply_plain(desc, coef64, x64))
+        A_csr = stencil_csr(desc, coef64)
+        x64col = x64.reshape(-1, 1)
+        check(f"f64 CSR yardstick vs K1 (level {k})",
+              rel_err(torch.sparse.mm(A_csr, x64col).reshape(bs, -1), y64), 1e-12)
+        t_k1_64lib = time_ms(lambda: torch.sparse.mm(A_csr, x64col))
+        del A_csr
+        log(f"  K1 f64 {t_k1_64:.4f} ms, back to back {t_k1_64b:.4f} ms (plain {t_k1_64p:.4f}, "
+            f"f64 CSR sparse.mm {t_k1_64lib:.4f}, bound {k1d_bound:.4f})")
         if k == 0:  # level 0 enters the report
             for key, (err, ms, plain, bnd, by, lib) in rows.items():
                 report[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
@@ -430,6 +486,12 @@ def phase_kernels(layer, hier, values, dev, seed):
                                     "bound_ms_level1": bnd})
         report["k1"].update({f"f64_ms{sfx}": t_k1_64, f"f64_ms_back_to_back{sfx}": t_k1_64b,
                              f"f64_bound_ms{sfx}": k1d_bound})
+        # K1 f64 as a kernel of its own (the transport multigrid path runs it)
+        f64_row = {f"ms{sfx}": t_k1_64, f"plain_ms{sfx}": t_k1_64p, f"bound_ms{sfx}": k1d_bound,
+                   f"library_ms{sfx}": t_k1_64lib, f"ms_back_to_back{sfx}": t_k1_64b}
+        if k == 0:
+            f64_row.update(max_abs_err=err64, bound_by=k1d_by)
+        report.setdefault("k1_f64", {}).update(f64_row)
         del lw, lb, W, coef16, binv16
     return report
 
@@ -517,6 +579,110 @@ def phase_k1_layouts(dev, seed):
     if len(widths) != 6:
         raise AssertionError(f"K1 layouts: point widths seen {sorted(widths)}, want both for "
                              f"every stored type")
+
+
+def phase_transport_kernels(dev, seed):
+    """Phase 2e: K1 (f64 and f32) and K2 at the shapes the transport
+    multigrid example gives them: its hierarchy (bs 5, (8, 512), n_grid 6,
+    default PDEConfig; 2-D order 2, m 5, time-line blocks of bw 40) at
+    levels 0 and 1.  K1 f64 on the outer FGMRES's fine operator (level 0;
+    at level 1 the same build from the stored values) against its plain
+    version at 1e-12, K1 f32 and K2 on the V-cycle's stored operators at
+    1e-5, each with its epilogues, and a 4-step smoothing pass at 1e-4.
+    Each is timed per launch and back to back beside its plain version, a
+    PyTorch call computing the same function (CSR sparse product; bmm) and
+    its bound.  Returns {key: numbers} for the kernels line (level 0, and
+    level 1 under "*_level1")."""
+    from mech_nn_discovery_pde_torch.examples import transport_multigrid
+    from mech_nn_discovery_pde_torch.ops import _cuda
+    from mech_nn_discovery_pde_torch.ops import fused_smoother as fs
+    from mech_nn_discovery_pde_torch.ops import normal_stencil as ns
+
+    g = torch.Generator(device=dev).manual_seed(seed + 5)
+    layer, coeffs, rhs, iv, steps, _ = transport_multigrid.build(device=dev)
+    values, _, hier = layer._prepare(coeffs, rhs, iv, steps)
+    mg = layer.mg_solver
+    out = {"k1_f64": {}, "k1": {}, "k2": {}}
+    for k in (0, 1):
+        lvl = hier["levels"][k]
+        desc, nt, sys_k = mg.descs[k], mg.dim_list[k][0], mg.systems[k]
+        coef, binv = lvl["coef"], lvl["binv"]
+        coef64 = (mg._fine_coef(hier, values) if k == 0 else
+                  ns.build_normal_coef(sys_k.spec, desc, sys_k.split_values(lvl["values"].double())))
+        if not (coef.dtype == binv.dtype == torch.float32 and coef64.dtype == torch.float64):
+            raise AssertionError(f"transport level {k}: operands {coef.dtype}, {binv.dtype}, "
+                                 f"{coef64.dtype}")
+        bs, NC, N = coef.shape
+        m = desc.n_mi
+        S, bw = N // nt, nt * m
+        log(f"transport level {k}: dims {mg.dim_list[k]}  NC {NC}  N {N}  m {m}  lines {S} x "
+            f"{bw}^2  bs {bs}")
+        x = torch.randn((bs, N * m), generator=g, device=dev)
+        b = torch.randn((bs, N * m), generator=g, device=dev)
+        x64, b64 = x.double(), b.double()
+        y64_k, y64_p = ns.stencil_apply(desc, coef64, x64), ns.stencil_apply_plain(desc, coef64, x64)
+        check(f"K1 f64 apply (transport level {k})", rel_err(y64_k, y64_p), 1e-12)
+        check_k1_epilogues(f"K1 f64 (transport level {k})", desc, coef64, x64, b64, 1e-12)
+        y_k, y_p = ns.stencil_apply(desc, coef, x), ns.stencil_apply_plain(desc, coef, x)
+        check(f"K1 f32 apply (transport level {k})", rel_err(y_k, y_p), 1e-5)
+        check_k1_epilogues(f"K1 f32 (transport level {k})", desc, coef, x, b, 1e-5)
+        t_k, t_p = fs.block_apply(binv, x, nt), fs.block_apply_plain(binv, x, nt)
+        check(f"K2 apply (transport level {k}, bw {bw})", rel_err(t_k, t_p), 1e-5)
+        c1 = torch.rand((bs,), generator=g, device=dev)
+        c2 = torch.rand((bs,), generator=g, device=dev)
+        d_k, d_p = b.clone(), b.clone()
+        fs.block_apply(binv, x, nt, d=d_k, c1=c1, c2=c2)
+        fs.block_apply_plain(binv, x, nt, d=d_p, c1=c1, c2=c2)
+        check(f"K2 Chebyshev epilogue (transport level {k})", rel_err(d_k, d_p), 1e-5)
+        ratio = mg.config.mg_chebyshev_ratio
+        sched = fs.chebyshev_schedule(lvl["lmax"], ratio, 4)
+        x0 = 0.1 * torch.randn((bs, N * m), generator=g, device=dev)
+        xs_k, rs_k = fs.chebyshev_smooth(desc, nt, coef, binv, b, x0, sched, 4, False)
+        xs_p, rs_p = fs.chebyshev_smooth_plain(desc, nt, coef, binv, b, x0, lvl["lmax"], ratio, 4,
+                                               False)
+        check(f"smoothing pass (transport level {k})",
+              max(rel_err(xs_k, xs_p), rel_err(rs_k, rs_p)), 1e-4)
+        torch.cuda.synchronize()
+
+        nb = len(desc.bands)
+        k1_flops = 2 * (m * m + 2 * nb) * N * bs
+        geo = {n: ns.stencil_geometry(N, bs, t.element_size(), _cuda.sm_count(dev))
+               for n, t in (("f32", x), ("f64", x64))}
+        log(f"  K1 geometry (transport level {k}): {geo}; K2 "
+            f"{fs.line_block_geometry(bs, S, bw, 4, _cuda.sm_count(dev), False)}")
+        xcol, x64col = x.reshape(-1, 1), x64.reshape(-1, 1)
+        A_csr, A64_csr = stencil_csr(desc, coef), stencil_csr(desc, coef64)
+        check(f"f64 CSR yardstick vs K1 (transport level {k})",
+              rel_err(torch.sparse.mm(A64_csr, x64col).reshape(bs, -1), y64_k), 1e-12)
+        rb = fs.line_vec_to_blocks(x, nt, m).reshape(bs * S, bw, 1).contiguous()
+        B2 = binv.reshape(bs * S, bw, bw)
+        cases = {  # key: (kernel, plain, library call, error, bytes, flops, peak)
+            "k1_f64": (lambda: ns.stencil_apply(desc, coef64, x64, out=y64_k),
+                       lambda: ns.stencil_apply_plain(desc, coef64, x64),
+                       lambda: torch.sparse.mm(A64_csr, x64col), abs_err(y64_k, y64_p),
+                       8 * (NC + 2 * m) * N * bs, k1_flops, PEAK_F64_FLOPS),
+            "k1": (lambda: ns.stencil_apply(desc, coef, x, out=y_k),
+                   lambda: ns.stencil_apply_plain(desc, coef, x),
+                   lambda: torch.sparse.mm(A_csr, xcol), abs_err(y_k, y_p),
+                   4 * (NC + 2 * m) * N * bs, k1_flops, PEAK_F32_FLOPS),
+            "k2": (lambda: fs.block_apply(binv, x, nt, d=t_k),
+                   lambda: fs.block_apply_plain(binv, x, nt), lambda: torch.bmm(B2, rb),
+                   abs_err(t_k, t_p), 4 * (bs * S * bw * bw + 2 * bs * N * m),
+                   2 * bs * S * bw * bw, PEAK_F32_FLOPS),
+        }
+        sfx = "" if k == 0 else "_level1"
+        for key, (kern, plain, lib, err, n_bytes, n_flops, peak) in cases.items():
+            bnd, by = bound(n_bytes, n_flops, peak)
+            row = {"ms": time_ms(kern), "ms_back_to_back": time_ms_back_to_back(kern),
+                   "plain_ms": time_ms(plain), "library_ms": time_ms(lib), "bound_ms": bnd}
+            log(f"  {key} (transport level {k}): {row['ms']:.4f} ms, back to back "
+                f"{row['ms_back_to_back']:.4f} (plain {row['plain_ms']:.4f}, library "
+                f"{row['library_ms']:.4f}, bound {bnd:.5f}, {by})")
+            row.update(max_abs_err=err, bound_by=by)
+            out[key].update({f"{n}{sfx}": v for n, v in row.items()})
+        del A_csr, A64_csr, B2
+    del layer, hier, values
+    return out
 
 
 # CUPTI overhead records (host blocked on a full launch queue, trace buffer
@@ -714,6 +880,303 @@ def phase_trainer(dev, cfg=None):
     return counts
 
 
+def spd_blocks(bs, S, bw, g, dev):
+    """Random SPD blocks A (bs, S, bw, bw): their inverses (K2's operand)
+    and the factors W = L^-T, exactly upper triangular (K3's, in bf16)."""
+    M = torch.randn((bs, S, bw, bw), generator=g, device=dev, dtype=torch.float64)
+    A = M @ M.transpose(-1, -2) / bw + torch.eye(bw, device=dev, dtype=torch.float64)
+    L = torch.linalg.cholesky(A)
+    eye = torch.eye(bw, device=dev, dtype=torch.float64).expand_as(A)
+    linv = torch.linalg.solve_triangular(L, eye, upper=False)
+    return (torch.cholesky_inverse(L).float().contiguous(),
+            linv.transpose(-1, -2).triu().to(torch.bfloat16).contiguous())
+
+
+# (nt, m, S, timed): bw 280 and 350 at bs 2 x 64 lines, timed; bw 245 and
+# 345 (odd, S 6) for correctness only: their blocks are aligned to 4 or 2
+# bytes, which the row-tiled load path copies in 4-byte units or 2-byte loads
+WIDE_SHAPES = ((40, 7, 64, True), (50, 7, 64, True), (35, 7, 6, False), (69, 5, 6, False))
+
+
+def phase_wide_blocks(dev, seed, bs=2):
+    """Phase 2d: K2 (f32 and bf16 inverses) and K3 at time-line blocks wider
+    than the streamed path holds, against their plain versions with the
+    Chebyshev epilogue (1e-5), random SPD blocks from --seed: bw 280 (nt 40;
+    K2 f32 row-tiled, K2 bf16 and K3 streamed), bw 350 (nt 50; all three
+    row-tiled; bf16 blocks of 245,000 B take the in-kernel load path), and
+    bw 245 and 345 (odd widths, correctness only).  bw 280 and 350 are
+    timed alone and back to back, beside their bound (each input read once;
+    the row-tiled K3 reads W twice, also given); the S-line blocks at bw
+    280 stay in L2 across back-to-back launches, so each kernel is also
+    timed back to back, and checked, on random blocks of 4 x S lines, a
+    working set beyond L2 ("*_4S")."""
+    from mech_nn_discovery_pde_torch.ops import _cuda
+    from mech_nn_discovery_pde_torch.ops import fused_smoother as fs
+
+    g = torch.Generator(device=dev).manual_seed(seed + 4)
+    rows = []
+    for nt, m, S, timed in WIDE_SHAPES:
+        bw = nt * m
+        n = nt * S * m
+        x = torch.randn((bs, n), generator=g, device=dev)
+        b = torch.randn((bs, n), generator=g, device=dev)
+        c1 = torch.rand((bs,), generator=g, device=dev)
+        c2 = torch.rand((bs,), generator=g, device=dev)
+        binv, W = spd_blocks(bs, S, bw, g, dev)
+        cases = (("K2 f32", "k2", fs.block_apply, fs.block_apply_plain, binv, False),
+                 ("K2 bf16", "k2_bf16", fs.block_apply, fs.block_apply_plain,
+                  binv.to(torch.bfloat16), False),
+                 ("K3", "k3", fs.factored_block_apply, fs.factored_block_apply_plain, W, True))
+        for name, key, kern, plain, blocks, factored in cases:
+            geo = fs.line_block_geometry(bs, S, bw, blocks.element_size(), _cuda.sm_count(dev),
+                                         factored)
+            tiled = geo.panel_rows < bw
+            label = f"{name} bw {bw} ({'row-tiled' if tiled else 'streamed'})"
+            log(f"  {label}: {geo}")
+            t_k, t_p = kern(blocks, x, nt), plain(blocks, x, nt)
+            check(f"{label} apply", rel_err(t_k, t_p), 1e-5)
+            d_k, d_p = b.clone(), b.clone()
+            kern(blocks, x, nt, d=d_k, c1=c1, c2=c2)
+            plain(blocks, x, nt, d=d_p, c1=c1, c2=c2)
+            check(f"{label} Chebyshev epilogue", rel_err(d_k, d_p), 1e-5)
+            torch.cuda.synchronize()
+            if not timed:
+                continue
+            ms = time_ms(lambda: kern(blocks, x, nt, d=d_k))
+            b2b = time_ms_back_to_back(lambda: kern(blocks, x, nt, d=d_k))
+            blk_bytes = bs * S * bw * bw * blocks.element_size()
+            flops = (4 if factored else 2) * bs * S * bw * bw
+            bnd, by = bound(blk_bytes + 4 * 2 * bs * n, flops)
+            row = dict(kernel=key, bw=bw, tiled=tiled, panel_rows=geo.panel_rows,
+                       bulk=geo.bulk, max_abs_err=abs_err(t_k, t_p), ms=ms,
+                       ms_back_to_back=b2b, bound_ms=bnd, bound_by=by)
+            msg = f"  {label}: {ms:.4f} ms, back to back {b2b:.4f} ms (bound {bnd:.4f}"
+            if factored and tiled:
+                row["bound_ms_w_twice"] = bound(2 * blk_bytes + 4 * 2 * bs * n, flops)[0]
+                msg += f"; reading W twice {row['bound_ms_w_twice']:.4f}"
+            log(msg + ")")
+            # the same launch on random blocks of 4 x S lines: 80 MB or more,
+            # beyond the 50 MB L2, which holds the S-line blocks (20-40 MB
+            # at bw 280) across back-to-back launches
+            big = torch.randn((bs, 4 * S, bw, bw), generator=g, device=dev)
+            big = (big.triu() if factored else big).to(blocks.dtype)
+            xb = torch.randn((bs, 4 * n), generator=g, device=dev)
+            t_big = kern(big, xb, nt)
+            check(f"{label} apply, 4 x S lines", rel_err(t_big, plain(big, xb, nt)), 1e-5)
+            row["ms_back_to_back_4S"] = time_ms_back_to_back(lambda: kern(big, xb, nt, d=t_big))
+            row["bound_ms_4S"] = bound(4 * blk_bytes + 4 * 2 * bs * 4 * n, 4 * flops)[0]
+            log(f"  {label}, {4 * S} lines ({4 * blk_bytes / 1e6:.0f} MB of blocks): back to back "
+                f"{row['ms_back_to_back_4S']:.4f} ms (bound {row['bound_ms_4S']:.4f})")
+            del big, xb, t_big
+            rows.append(row)
+        del binv, W
+    return rows
+
+
+def phase_dense(dev):
+    """Phase 7: the dense path's entry() forward (Burgers (32, 32), bs 10,
+    f32_ir) held to the same inputs solved at precision "f64" (max-abs
+    <= 1e-6); rel_rnorm; forward and forward + IFT backward of sum(u0^2),
+    medians of 5; one profiled forward + backward; the factor solves'
+    triangular-solve route timed beside torch.cholesky_solve."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mech_nn_discovery_pde_torch.config import PDEConfig
+    from mech_nn_discovery_pde_torch.entry import IV_LIST, entry
+    from mech_nn_discovery_pde_torch.layers.dense import PDEDenseLayer
+    from mech_nn_discovery_pde_torch.solvers.cholesky import cho_solve
+
+    fn, args = entry(device=dev)
+    layer = fn.layer
+    layer64 = PDEDenseLayer(bs=layer.bs, coord_dims=layer.coord_dims, order=2,
+                            init_index_mi_list=IV_LIST, config=PDEConfig(precision="f64"),
+                            device=dev)
+    with torch.no_grad():
+        u0 = fn(*args)
+        u64 = layer64(args[0], args[1], args[2], list(args[3:]))[0]
+        st = layer.solve_stats(args[0], args[1], args[2], list(args[3:]))
+    torch.cuda.synchronize()
+    err = abs_err(u0, u64)
+    rel = st["rel_rnorm"]
+    log(f"entry() f32_ir forward: u0 {tuple(u0.shape)}, max-abs vs f64 {err:.3e} (limit 1e-6); "
+        f"rel_rnorm max {float(rel.max()):.4e} mean {float(rel.mean()):.4e}; finite "
+        f"{bool(st['finite'].all())}")
+    if not (bool(torch.isfinite(u0).all()) and err <= 1e-6 and bool(st["finite"].all())):
+        raise AssertionError(f"entry() forward: max-abs {err:.3e} against f64 (limit 1e-6)")
+
+    def fwd():
+        with torch.no_grad():
+            return fn(*args)
+
+    def fwd_bwd():
+        c, r, i = (a.clone().requires_grad_(True) for a in args[:3])
+        (fn(c, r, i, *args[3:]) ** 2).sum().backward()
+        return c.grad, r.grad, i.grad
+
+    out = {}
+    for name, f in (("forward", fwd), ("forward+backward", fwd_bwd)):
+        f()
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            f()
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        ts.sort()
+        out[name] = ts[2]
+        log(f"entry() {name}: median {ts[2] * 1e3:.2f} ms over 5 (min {ts[0] * 1e3:.2f}, "
+            f"max {ts[-1] * 1e3:.2f})")
+    grads = fwd_bwd()
+    if not all(bool(torch.isfinite(gr).all()) for gr in grads):
+        raise AssertionError("entry() backward: non-finite gradient")
+    # the triangular-solve route of the factor solves (solvers/cholesky.py
+    # cho_solve) beside torch.cholesky_solve, on the forward's f32 factors
+    with torch.no_grad():
+        values, _ = layer._prepare(args[0], args[1], args[2], list(args[3:]))
+        L, _ = layer.inner.factor(values)
+        rhs = torch.randn(L.shape[:2], device=dev, dtype=L.dtype)
+        check("cho_solve vs torch.cholesky_solve",
+              rel_err(cho_solve(L, rhs), torch.cholesky_solve(rhs[..., None], L)[..., 0]), 1e-4)
+        t_tri = time_ms(lambda: cho_solve(L, rhs), n=5)
+        t_cho = time_ms(lambda: torch.cholesky_solve(rhs[..., None], L), n=5)
+    log(f"factor solve ({tuple(L.shape)} f32): two triangular solves {t_tri:.3f} ms, "
+        f"torch.cholesky_solve {t_cho:.3f} ms")
+    out["cho_solve_ms"], out["cholesky_solve_ms"] = t_tri, t_cho
+    del L, values
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fwd_bwd()
+        torch.cuda.synchronize()
+    _, busy_us, by_name = kernel_counts(prof)
+    log(f"profiler: entry() forward + backward device busy {busy_us / 1e3:.2f} ms "
+        f"(idle share {max(0.0, 1 - busy_us / 1e6 / out['forward+backward']):.3f})")
+    for name, (us, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+        log(f"  {us / 1e3:10.3f} ms  x{c:5d}  {name[:90]}")
+    return out
+
+
+class _Records(logging.Handler):
+    """Collects the port's per-solve log lines ("solve[forward] ...")."""
+
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def phase_burgers(dev, steps=3):
+    """Phase 8: Adam steps of BurgersDiscovery.loss_fn at the BurgersConfig
+    defaults: the full 128 x 256 field through the width-128, depth-12
+    ResNet, bs 10 dense (32, 32) solves in f32_ir; a finite loss, the step
+    times and each solve's rel_rnorm (the layer's log_solves lines)."""
+    from mech_nn_discovery_pde_torch.data.datasets import BurgersDataset, PatchLoader
+    from mech_nn_discovery_pde_torch.discovery.burgers import BurgersConfig, BurgersDiscovery
+    from mech_nn_discovery_pde_torch.discovery.common import make_update
+
+    cfg = BurgersConfig()
+    t0 = time.perf_counter()
+    ds = BurgersDataset(solver_dim=cfg.solver_dim, data_root=cfg.data_root)
+    log(f"Burgers data ready in {time.perf_counter() - t0:.1f} s: u {ds.data.shape}, "
+        f"{len(ds)} patches")
+    model = BurgersDiscovery(cfg, ds, device=dev)
+    opt = torch.optim.Adam(model.parameters(), lr=cfg.lr)
+    update = make_update(model.loss_fn, opt)
+    batches = iter(PatchLoader(ds, cfg.batch_size, seed=cfg.seed))
+    rec = _Records()
+    pde_log = logging.getLogger("pde")
+    pde_log.addHandler(rec)
+    pde_log.setLevel(logging.INFO)
+    times = []
+    try:
+        for i in range(steps):
+            patch, t_idx, x_idx = next(batches)
+            rec.lines.clear()
+            t0 = time.perf_counter()
+            loss, aux = update(patch, t_idx, x_idx)
+            lv = float(loss)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            log(f"Burgers step {i}: loss {lv:.6e} (x_loss {float(aux['x_loss']):.4e}, var_loss "
+                f"{float(aux['var_loss']):.4e}) {times[-1]:.3f} s; " + "; ".join(rec.lines))
+            if not math.isfinite(lv) or not any("forward" in ln for ln in rec.lines):
+                raise AssertionError(f"Burgers step {i}: loss {lv}, solve logs {rec.lines}")
+    finally:
+        pde_log.removeHandler(rec)
+    return times
+
+
+def phase_sine(dev, epochs=25):
+    """Phase 9: the sine fit at the SineFitConfig defaults with f64 solves
+    for 25 epochs; its last loss must be below 0.2 x its first."""
+    from mech_nn_discovery_pde_torch.config import PDEConfig
+    from mech_nn_discovery_pde_torch.fit.sine_fit import SineFitConfig, train
+
+    t0 = time.perf_counter()
+    _, hist = train(SineFitConfig(epochs=epochs, pde=PDEConfig(precision="f64")), device=dev)
+    dt = time.perf_counter() - t0
+    log(f"sine fit: {epochs} epochs in {dt:.2f} s, loss {hist[0]:.4e} -> {hist[-1]:.4e} "
+        f"(ratio {hist[-1] / hist[0]:.4f}, limit 0.2)")
+    if not (all(math.isfinite(h) for h in hist) and hist[-1] < 0.2 * hist[0]):
+        raise AssertionError(f"sine fit: loss {hist[0]} -> {hist[-1]}")
+    return dt
+
+
+def k1_launches_by_type(prof):
+    """K1 f64 / f32 and K2 launches in a trace, by kernel instantiation."""
+    out = {"k1_f64": 0, "k1_f32": 0, "k2": 0}
+    for e in device_events(prof):
+        if "k1_stencil_apply<double" in e.name:
+            out["k1_f64"] += 1
+        elif "k1_stencil_apply<float" in e.name:
+            out["k1_f32"] += 1
+        elif "k2_line_block_apply" in e.name:
+            out["k2"] += 1
+    return out
+
+
+def phase_transport(dev):
+    """Phase 10: both transport examples' main().  The multigrid one ((8,
+    512), n_grid 6, default PDEConfig: f64 outer FGMRES, K1 f64 inside it,
+    K1 f32 and K2 at bw 40 in the V-cycle) must reach an interior advection
+    error <= 3.0e-2, the dense one <= 2.5e-2.  Returns the launch counts of
+    the multigrid example; one window is profiled to count the kernels by
+    instantiation."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mech_nn_discovery_pde_torch.examples import transport_dense, transport_multigrid
+    from mech_nn_discovery_pde_torch.ops import _cuda
+
+    torch.cuda.synchronize()
+    _cuda.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    _, err_mg = transport_multigrid.main(device=dev)
+    torch.cuda.synchronize()
+    dt_mg = time.perf_counter() - t0
+    counts = dict(_cuda.LAUNCHES)
+    log(f"transport multigrid: {dt_mg:.2f} s for 4 windows, error {err_mg:.4e} (limit 3.0e-2); "
+        f"launches {counts}")
+    t0 = time.perf_counter()
+    _, err_d = transport_dense.main(device=dev)
+    torch.cuda.synchronize()
+    log(f"transport dense: {time.perf_counter() - t0:.2f} s for 8 windows, error {err_d:.4e} "
+        f"(limit 2.5e-2)")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        transport_multigrid.main(device=dev, windows=1)
+        torch.cuda.synchronize()
+    by_type = k1_launches_by_type(prof)
+    log(f"profiler: one multigrid transport window launches {by_type}")
+    if not (err_mg <= 3.0e-2 and err_d <= 2.5e-2):
+        raise AssertionError(f"transport errors {err_mg:.3e} (multigrid), {err_d:.3e} (dense)")
+    for n in ("k1_stencil_apply_f64", "k1_stencil_apply", "k2_line_block_apply"):
+        if counts.get(n, 0) == 0:
+            raise AssertionError(f"transport multigrid did not launch {n}")
+    if min(by_type.values()) == 0:
+        raise AssertionError(f"profiler: transport window kernels {by_type}")
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -738,8 +1201,9 @@ def main() -> int:
     t0 = time.perf_counter()
     outs = _cuda.build(ptxas=True)
     log(f"kernels built in {time.perf_counter() - t0:.1f} s (nvcc {_cuda.nvcc_path()})")
-    log(outs.get("line_block", "").rstrip())
-    if "stencil_apply" in outs:  # built in this run: read ptxas's report
+    if "line_block" in outs:  # built in this run: read ptxas's report
+        check_line_block_ptxas(outs["line_block"])
+    if "stencil_apply" in outs:
         check_k1_ptxas(outs["stencil_apply"])
 
     # phase 2 needs a real hierarchy: build it with the layer of phase 3
@@ -760,8 +1224,15 @@ def main() -> int:
         f"{float(hier['levels'][0]['lmax'].min()):.4f}..{float(hier['levels'][0]['lmax'].max()):.4f}")
     report = phase_kernels(layer, hier, values.detach(), dev, args.seed)
     phase_odd_shape(dev, args.seed)
+    wide = phase_wide_blocks(dev, args.seed)
     phase_k1_layouts(dev, args.seed)
     del layer, hier, values
+    torch.cuda.empty_cache()
+    tk = phase_transport_kernels(dev, args.seed)
+    # K1 f64's entry takes its numbers at the shapes of the path that
+    # launches it (the transport example); its GL-shape numbers stay beside
+    report["k1_f64"] = dict(tk["k1_f64"], gl_shapes=report["k1_f64"])
+    report["k1"]["transport"], report["k2"]["transport"] = tk["k1"], tk["k2"]
     torch.cuda.empty_cache()
 
     phase_layer(args.seed, dev)
@@ -770,21 +1241,36 @@ def main() -> int:
     counts_b = phase_bf16_forward(args.seed, dev)
     torch.cuda.empty_cache()
     counts = phase_trainer(dev)
+    torch.cuda.empty_cache()
+    phase_dense(dev)
+    torch.cuda.empty_cache()
+    phase_burgers(dev)
+    torch.cuda.empty_cache()
+    phase_sine(dev)
+    counts_t = phase_transport(dev)
 
     stencil = "mech_nn_discovery_pde_torch/csrc/stencil_apply.cu"
     line = "mech_nn_discovery_pde_torch/csrc/line_block.cu"
     tpu_fs = "mech_nn_discovery_pde_tpu/ops/fused_smoother.py"
     trainer, step_w, fwd_b = "GL trainer, 3 steps", "b30c4rmw layer step", "b30c4rm bf16 forward"
+    transport = "transport multigrid example, 4 windows"
     kernels = [  # (name, source, TPU kernel, launch counts of its path, key)
         ("k1_stencil_apply", stencil, "mech_nn_discovery_pde_tpu/ops/normal_stencil.py:404",
          trainer, counts, "k1"),
+        ("k1_stencil_apply_f64", stencil, "mech_nn_discovery_pde_tpu/ops/normal_stencil.py:404",
+         transport, counts_t, "k1_f64"),
         ("k2_line_block_apply", line, f"{tpu_fs}:128", trainer, counts, "k2"),
         ("k3_factored_line_block_apply", line, f"{tpu_fs}:104", step_w, counts_w, "k3"),
         ("k1_stencil_apply_bf16", stencil, f"{tpu_fs}:51", fwd_b, counts_b, "k1_bf16"),
         ("k2_line_block_apply_bf16", line, f"{tpu_fs}:87", fwd_b, counts_b, "k2_bf16"),
     ]
+    # K2 and K3 also carry their wide-block numbers (phase 2d)
+    wide_rows = {}
+    for r in wide:
+        wide_rows.setdefault(r["kernel"], []).append({k: v for k, v in r.items() if k != "kernel"})
     kernels = [dict(name=n, route="cuda", source=src, replaces=rep, launches=c.get(n, 0),
-                    launches_in=path, **report[key])
+                    launches_in=path, **report[key],
+                    **({"wide_blocks": wide_rows[key]} if key in wide_rows else {}))
                for n, src, rep, path, c, key in kernels]
     for kd in kernels:
         if kd["launches"] == 0:

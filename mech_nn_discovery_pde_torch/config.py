@@ -12,8 +12,10 @@ the port resolves them as follows:
   so the reason the TPU build picked float32 there (float64 emulated in
   software) does not apply.  Performance configurations set `"f32"`
   explicitly, as the GL trainer and the benchmark step do.
-- `precision="auto"` -> `"f64"`.  Only the dense path reads it, and the
-  dense path is not ported yet.
+- `precision="auto"` -> `"f64"`.  Only the dense path reads it
+  (`layers/dense.py`): the card has native float64, so the solve stays in
+  float64 unless a configuration asks for `"f32_ir"` (float32 factor plus
+  float64 PCG refinement; Burgers, `entry()`) or `"f32"`.
 
 Kernel routing is not a config option in the port: on CUDA tensors the
 assembled stencil apply and the smoothing pass always run the hand-written

@@ -1,7 +1,9 @@
 """Patch-slicing dataset + a simple batch loader (numpy).
 
-Copy of the JAX package's data/datasets.py, limited to what the GL slice
-needs: `ReactDiffDataset` and `PatchLoader`.
+Copy of the JAX package's data/datasets.py, limited to the workloads
+ported so far: `BurgersDataset`, `ReactDiffDataset` and `PatchLoader`, with
+the data-fault knobs (percent Gaussian noise, frame dropping with a loss
+mask) seeded as there, so both packages make the same arrays.
 """
 
 from __future__ import annotations
@@ -15,6 +17,43 @@ def add_percent_noise(data: np.ndarray, percent: float, rng) -> np.ndarray:
     """Gaussian noise at `percent`% of the data RMS (reference :96-100)."""
     rmse = np.sqrt(np.mean(data**2))
     return data + rng.normal(0, rmse * percent / 100.0, data.shape)
+
+
+class BurgersDataset:
+    """Slices the (nt, nx) Burgers field into (solver_dim) patches: time is
+    tiled in strides of solver_dim[0]; space slides by 1.  Items: (patch,
+    t_idx, x_idx)."""
+
+    def __init__(
+        self,
+        solver_dim=(32, 32),
+        data_root: str = "data",
+        noise_percent: float = 0.0,
+        frame_drop_prob: float = 0.0,
+        seed: int = 0,
+    ):
+        rng = np.random.default_rng(seed)
+        data = generate.ensure_dataset("burgers", data_root)["u"]
+        self.t_step = 0.025
+        self.x_step = 20.0 / data.shape[1]
+        if noise_percent:
+            data = add_percent_noise(data, noise_percent, rng)
+        # frame dropping: zero whole time frames, expose the mask for losses
+        self.frame_mask = (rng.random(data.shape[0]) > frame_drop_prob).astype(data.dtype)
+        data = data * self.frame_mask[:, None]
+        self.data = data
+        self.solver_dim = solver_dim
+        self.num_t_idx = data.shape[0] // solver_dim[0]
+        self.num_x_idx = data.shape[1] - solver_dim[1] + 1
+
+    def __len__(self):
+        return self.num_t_idx * self.num_x_idx
+
+    def __getitem__(self, idx):
+        t_i, x_i = np.unravel_index(idx, (self.num_t_idx, self.num_x_idx))
+        t0 = t_i * self.solver_dim[0]
+        patch = self.data[t0 : t0 + self.solver_dim[0], x_i : x_i + self.solver_dim[1]]
+        return patch, t0, x_i
 
 
 class ReactDiffDataset:

@@ -17,6 +17,18 @@ import torch
 from torch import nn
 
 
+@torch.no_grad()
+def lecun_normal_(layer: nn.Module, generator: Optional[torch.Generator] = None) -> None:
+    """flax's default init of a Dense or Conv layer: weight ~ lecun-normal
+    (variance_scaling(1, fan_in, truncated_normal), truncated at 2 std, with
+    fan_in = in features x kernel volume), bias 0."""
+    w = layer.weight
+    fan_in = w.shape[1] * int(np.prod(w.shape[2:]))
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
+    layer.bias.zero_()
+
+
 class ParamNet(nn.Module):
     def __init__(self, n_out: int, width: int = 1024, in_dim: int = 512, depth: int = 2,
                  dtype=torch.float32, device="cuda",
@@ -32,10 +44,7 @@ class ParamNet(nn.Module):
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         self.input.normal_(0.0, 1.0, generator=generator)
         for lin in self.layers:
-            # flax lecun_normal: variance_scaling(1, fan_in, truncated_normal)
-            std = math.sqrt(1.0 / lin.in_features) / 0.87962566103423978
-            nn.init.trunc_normal_(lin.weight, 0.0, std, -2 * std, 2 * std, generator=generator)
-            lin.bias.zero_()
+            lecun_normal_(lin, generator)
 
     def forward(self) -> torch.Tensor:
         x = self.input

@@ -49,12 +49,12 @@ _SIGNATURES = {
         "k1_stencil_apply_f64": [_P] * 2 + [_I] * 9 + [_P] * 5,
         "k1_stencil_apply_bf16": [_P] * 2 + [_I] * 9 + [_P] * 5,
     },
-    # operands, (m, nt, S, bs), the launch geometry (ctas, stages,
-    # smem_bytes, bulk; ops/fused_smoother.line_block_geometry), stream
+    # operands, (m, nt, S, bs), the launch geometry (ctas, panel rows,
+    # stages, smem_bytes, bulk; ops/fused_smoother.line_block_geometry), stream
     "line_block": {
-        "k2_line_block_apply_f32": [_P] * 5 + [_I] * 8 + [_P],
-        "k2_line_block_apply_bf16": [_P] * 5 + [_I] * 8 + [_P],
-        "k3_factored_line_block_apply_bf16": [_P] * 5 + [_I] * 8 + [_P],
+        "k2_line_block_apply_f32": [_P] * 5 + [_I] * 9 + [_P],
+        "k2_line_block_apply_bf16": [_P] * 5 + [_I] * 9 + [_P],
+        "k3_factored_line_block_apply_bf16": [_P] * 5 + [_I] * 9 + [_P],
     },
 }
 _ERROR_FN = {"stencil_apply": "k1_error_string", "line_block": "k2_error_string"}

@@ -19,7 +19,8 @@ stores the PSD square-root factor W = L^-T of B^-1 = W W^T in bfloat16 (the
 TPU kernel's `factored=True`, `_emit_factored_block_apply`).  Both launch
 persistent CTAs that stream the blocks through a shared-memory ring; their
 launch geometry (`line_block_geometry`) is computed here from the shapes
-and the card's SM count.
+and the card's SM count.  A block too large for one CTA's shared memory
+takes the kernels' row-tiled path, which streams it in panels of rows.
 
 The recurrence is the JAX package's (`MultigridSolver._smooth` chebyshev
 branch and `_fused_chebyshev_kernel`): Chebyshev over [lmax/ratio, lmax],
@@ -145,9 +146,9 @@ def block_apply(
     float32.  With `d` given, writes d = c1 d + c2 t into d and returns it
     (c1 None reads as 0, and d is then not read; c2 None as 1; both
     per-sample (bs,) tensors); else returns t.  CUDA tensors launch kernel
-    K2; CPU tensors run the plain version.  K2 stages each block in one
-    CTA's shared memory: it takes bw <= 240 in float32 and <= 339 in
-    bfloat16, and raises ValueError beyond (`line_block_geometry`)."""
+    K2; CPU tensors run the plain version.  K2 takes any bw: a block larger
+    than one CTA's shared memory (bw > 240 in float32, > 339 in bfloat16)
+    streams in panels of rows (`line_block_geometry`)."""
     if binv.is_cuda:
         launcher = _K2_FN.get(binv.dtype)
         if launcher is None:
@@ -173,8 +174,8 @@ def factored_block_apply(
 
     Contract: W is upper-triangular, with an exactly zero strict lower
     triangle (the solver stores L^-T with `.triu()`).  K3 reads only the
-    upper triangle; the plain version reads all of W.  K3 takes bw <= 337
-    and raises ValueError beyond, as `block_apply` does."""
+    upper triangle; the plain version reads all of W.  K3 takes any bw; a
+    block with bw > 337 streams in panels of rows, twice (`block_apply`)."""
     if w.is_cuda:
         if w.dtype != torch.bfloat16:
             raise ValueError(f"factored_block_apply: K3 takes a bfloat16 W, got {w.dtype}")
@@ -201,6 +202,11 @@ _SMEM_RESERVED = 1024
 # 2 stages let each CTA's next block load while one is computed on
 _CTAS_PER_SM = 8
 _STAGES = 2
+# the row-tiled path's panels: a multiple of 8 rows (so a panel's bytes are a
+# multiple of 16 and it takes the bulk copy), and the most CTAs per SM whose
+# panels still hold one full warp of rows
+_PANEL_ROW_STEP = 8
+_PANEL_MIN_ROWS = 32
 
 
 def _pad16(n: int) -> int:
@@ -210,25 +216,46 @@ def _pad16(n: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class LineBlockGeometry:
     """Launch geometry of K2/K3 (csrc/line_block.cu): `ctas` persistent CTAs
-    (one producer warp and ceil(bw/32) consumer warps each), each with a
-    ring of `stages` stages in `smem_bytes` of dynamic shared memory; CTA c
-    takes the items (sample, line) c, c + ctas, ... of the bs*S items.
-    `bulk`: each block is moved by one 1-D bulk copy (its bytes a multiple
-    of 16); else the kernel's own load path copies it."""
+    (one producer warp and ceil(panel_rows/32) consumer warps each), each
+    with a ring of `stages` stages in `smem_bytes` of dynamic shared memory;
+    CTA c takes the items (sample, line) c, c + ctas, ... of the bs*S items.
+    `panel_rows`: bw where a stage holds a whole block (the streamed path),
+    else the rows of the panels a block streams in (the row-tiled path).
+    `bulk`: each block or panel is moved by one 1-D bulk copy (its bytes a
+    multiple of 16); else the kernel's own load path copies it."""
 
     ctas: int
     stages: int
     smem_bytes: int
     bulk: bool
+    panel_rows: int
 
 
-def line_block_smem_bytes(bw: int, stages: int, entry_bytes: int, factored: bool) -> int:
-    """The kernel's shared-memory layout (`make_layout` in line_block.cu):
-    2 mbarriers per stage, K3's double-buffered f32 u, and per stage the
-    block and r's line, each padded to 16 bytes."""
-    stage = _pad16(bw * bw * entry_bytes) + _pad16(4 * bw)
+def line_block_smem_bytes(bw: int, stages: int, entry_bytes: int, factored: bool,
+                          rows: Optional[int] = None) -> int:
+    """The kernel's shared-memory layout.  Streamed path (`rows` None or bw;
+    `make_layout` in line_block.cu): 2 mbarriers per stage, K3's
+    double-buffered f32 u, and per stage the block and r's line, each padded
+    to 16 bytes.  Row-tiled path (rows < bw; `make_tiled_layout`): the
+    mbarriers, K3's u, r's line double-buffered, and per stage a panel of
+    `rows` block rows."""
     u = _pad16(2 * 4 * bw) if factored else 0
-    return 16 * stages + u + stages * stage
+    if rows is None or rows >= bw:
+        stage = _pad16(bw * bw * entry_bytes) + _pad16(4 * bw)
+        return 16 * stages + u + stages * stage
+    return 16 * stages + u + _pad16(2 * 4 * bw) + stages * _pad16(rows * bw * entry_bytes)
+
+
+def _panel_rows(bw: int, stages: int, entry_bytes: int, factored: bool, budget: int) -> int:
+    """The most panel rows (< bw; a multiple of _PANEL_ROW_STEP where that
+    leaves any) whose layout fits `budget` bytes; 0 if none."""
+    fixed = line_block_smem_bytes(bw, stages, entry_bytes, factored, rows=0)
+    rows = min(bw - 1, max(0, (budget - fixed) // (stages * bw * entry_bytes)))
+    if rows >= _PANEL_ROW_STEP:
+        rows -= rows % _PANEL_ROW_STEP
+    while rows > 0 and line_block_smem_bytes(bw, stages, entry_bytes, factored, rows) > budget:
+        rows -= 1
+    return rows
 
 
 @functools.lru_cache(maxsize=64)
@@ -237,9 +264,13 @@ def line_block_geometry(bs: int, S: int, bw: int, entry_bytes: int, n_sm: int,
     """Choose K2/K3's launch geometry for bs*S blocks of bw x bw entries of
     `entry_bytes` on a card of `n_sm` SMs: _CTAS_PER_SM CTAs of _STAGES
     stages each, fewer CTAs per SM where shared memory does not hold them,
-    then one stage.  A block must fit one CTA's shared memory (227 KB):
-    bw <= 240 in f32, <= 339 in bf16 (<= 337 for K3); a larger one raises
-    ValueError."""
+    then one stage.  A block that does not fit one CTA's shared memory
+    (227 KB; bw > 240 in f32, > 339 in bf16, > 337 for K3) takes the
+    row-tiled path: _STAGES stages of panels, the most CTAs per SM whose
+    panels hold _PANEL_MIN_ROWS rows (else one CTA, and one stage if two do
+    not fit).  Raises ValueError for a bad shape, and for a bw so large that
+    r's line (and K3's u) leave no room for one row: above about 12,900 for
+    K3, 19,300 for K2 in f32."""
     if min(bs, S, bw, entry_bytes, n_sm) < 1:
         raise ValueError(f"line_block_geometry: bad shape bs={bs} S={S} bw={bw} n_sm={n_sm}")
     per_sm, stages = _CTAS_PER_SM, _STAGES
@@ -254,11 +285,26 @@ def line_block_geometry(bs: int, S: int, bw: int, entry_bytes: int, n_sm: int,
             stages = 1
         else:
             break
-    if smem(stages) > _SMEM_PER_BLOCK:
-        raise ValueError(f"line_block_geometry: a {bw}x{bw} block of {entry_bytes}-byte "
-                         f"entries does not fit one CTA's shared memory")
+    if smem(stages) <= _SMEM_PER_BLOCK:
+        return LineBlockGeometry(ctas=min(bs * S, n_sm * per_sm), stages=stages,
+                                 smem_bytes=smem(stages), bulk=bw * bw * entry_bytes % 16 == 0,
+                                 panel_rows=bw)
+    stages = _STAGES
+    for per_sm in range(_CTAS_PER_SM, 0, -1):
+        budget = min(_SMEM_PER_SM // per_sm - _SMEM_RESERVED, _SMEM_PER_BLOCK)
+        rows = _panel_rows(bw, stages, entry_bytes, factored, budget)
+        if rows >= _PANEL_MIN_ROWS:
+            break
+    if rows < 1:
+        stages = 1
+        rows = _panel_rows(bw, stages, entry_bytes, factored, _SMEM_PER_BLOCK)
+    if rows < 1:
+        raise ValueError(f"line_block_geometry: bw={bw} leaves no room for a panel row")
+    bulk = bw * bw * entry_bytes % 16 == 0 and rows * bw * entry_bytes % 16 == 0
     return LineBlockGeometry(ctas=min(bs * S, n_sm * per_sm), stages=stages,
-                             smem_bytes=smem(stages), bulk=bw * bw * entry_bytes % 16 == 0)
+                             smem_bytes=line_block_smem_bytes(bw, stages, entry_bytes, factored,
+                                                              rows),
+                             bulk=bulk, panel_rows=rows)
 
 
 def _launch_line_block(launcher, blocks, r, nt, d, c1, c2):
@@ -287,7 +333,7 @@ def _launch_line_block(launcher, blocks, r, nt, d, c1, c2):
     lib = _cuda.library("line_block")
     code = getattr(lib, fn)(
         blocks.data_ptr(), r.data_ptr(), d.data_ptr(), _cuda.ptr(c1), _cuda.ptr(c2),
-        m, nt, S, bs, geom.ctas, geom.stages, geom.smem_bytes, int(bulk),
+        m, nt, S, bs, geom.ctas, geom.panel_rows, geom.stages, geom.smem_bytes, int(bulk),
         _cuda.stream_ptr(blocks.device),
     )
     _cuda.check("line_block", counted, code)

@@ -397,10 +397,11 @@ def stencil_apply(
     return stencil_apply_plain(desc, coef, x, rin, out, xin, xout)
 
 
-# (coef dtype, vector dtype) -> (launcher, launch-count name)
+# (coef dtype, vector dtype) -> (launcher, launch-count name); the float64
+# instantiation (the outer FGMRES at mg_solve_dtype 'solver') counts apart
 _K1_FN = {
     (torch.float32, torch.float32): ("k1_stencil_apply_f32", "k1_stencil_apply"),
-    (torch.float64, torch.float64): ("k1_stencil_apply_f64", "k1_stencil_apply"),
+    (torch.float64, torch.float64): ("k1_stencil_apply_f64", "k1_stencil_apply_f64"),
     (torch.bfloat16, torch.float32): ("k1_stencil_apply_bf16", "k1_stencil_apply_bf16"),
 }
 

@@ -170,7 +170,7 @@ class PDESystem:
     matvec = matvec_coo
     rmatvec = rmatvec_coo
 
-    # ---- dense normal-equation assembly (MG coarsest level) ------------
+    # ---- dense normal-equation assembly (dense path, MG coarsest level) --
 
     @cached_property
     def _raw_pairs(self):

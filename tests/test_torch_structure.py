@@ -166,7 +166,9 @@ PORT_MODULES = [
         "ops.structured", "ops.system", "ops.normal_stencil", "ops.fused_smoother",
         "ops.normal_solve", "ops._cuda", "solvers.krylov", "solvers.multigrid",
         "layers.multigrid", "models.paramnet", "data.generate", "data.datasets",
-        "discovery.common", "discovery.ginzburg_landau",
+        "discovery.common", "discovery.ginzburg_landau", "solvers.cholesky", "layers.dense",
+        "entry", "models.resnet", "discovery.burgers", "fit.sine_fit",
+        "examples.transport_dense", "examples.transport_multigrid",
     )
 ]
 FORBIDDEN = ("jax", "flax", "optax", "orbax", "mech_nn_discovery_pde_tpu")
