@@ -1,9 +1,10 @@
 """Chip smoke test of the PyTorch port on one NVIDIA GPU (H100).
 
-Runs the port's main paths (the Ginzburg-Landau multigrid training step;
-the dense path: entry(), Burgers discovery, the sine fit; the transport
-examples) and holds each hand-written CUDA kernel against its plain PyTorch
-version:
+Runs the port's main paths (the Ginzburg-Landau multigrid training step,
+also with its ResNet transform and backward probe; the dense path: entry(),
+Burgers discovery, the sine fit, Kamani discovery and a resumed Kamani run;
+the transport examples) and holds each hand-written CUDA kernel against its
+plain PyTorch version:
 
   1. device: requires CUDA; prints the card's name and power limit;
      builds the kernels (one nvcc per source, in parallel) and reads
@@ -30,8 +31,9 @@ version:
      point a thread) and at bs 2 x SMs (16-byte loads); K1 f64 also beside
      its plain version and a float64 CSR sparse product at both levels;
      then K2 (f32 and bf16) and K3 at time-line blocks wider than one CTA's
-     shared memory holds (bw 280 and 350, timed beside their bounds, also
-     on 4 x as many lines, beyond L2; bw 245 and 345, whose blocks are
+     shared memory holds (bw 280 and 350, timed beside their bounds and
+     one bmm (two for K3) on an f32 copy of the blocks, also on 4 x as many
+     lines, beyond L2; bw 245 and 345, whose blocks are
      aligned to 4 or 2 bytes: the kernels' row-tiled path and each of its
      load units) against their plain versions; then K1 f64 (1e-12), K1 f32
      and K2 (1e-5) with their epilogues, and a smoothing pass, at the
@@ -63,16 +65,31 @@ version:
      (multigrid: (8, 512), n_grid 6, f64 outer FGMRES with K1 f64, K1 f32
      and K2 at bw 40 in the V-cycle) and <= 2.5e-2 (dense); one multigrid
      window profiled to count K1 f64, K1 f32 and K2 launches;
- 11. one JSON line {"kernels": [...]} with each kernel's numbers and the
+ 11. Kamani trainer: 3 Adam steps at the KamaniConfig defaults (bs 2048
+     dense (24,) f32_ir solves, the width-100, depth-9 ResNet1D) on data
+     from the port's generator (into data/kamani/); finite loss, pinned
+     coefficient row, |exponents| <= 2; the last step profiled; the
+     closed-loop error of the learned model and of the true one (< 0.01);
+ 12. GL with the ResNet transform: 3 Adam steps at GLConfig(nn_transform=
+     True) defaults (two width-128, depth-12 ResNets on 256 frames of 32 x
+     32) and one backward_probe; finite loss, K1 and K2 launched, every
+     probe solve finite;
+ 13. resume: Kamani train() for one 1-step epoch with a checkpoint, then
+     again from that run directory for 2 epochs: it starts at epoch 1 from
+     the checkpoint's parameters, Adam moments and scheduler step bit for
+     bit, and its step moves the parameters;
+ 14. one JSON line {"kernels": [...]} with each kernel's numbers and the
      launch counts of the run that drives it ("launches_in"); K1 and K1
      bf16 also carry their level-1 numbers ("*_level1") and K1 its f64
      ones ("f64_*"); K1 f64 is also an entry of its own, counted on the
      transport multigrid path, with its numbers at that path's shapes and
      its GL-shape ones beside them ("gl_shapes"); K1 and K2 carry their
-     transport-shape numbers ("transport"); K2, K2 bf16 and K3 carry their
-     wide-block rows ("wide_blocks"); then {"ok": true, "device": {...}} as the last
-     line.  The script turns TF32 off for matmuls and cuDNN, so every
-     product and convolution here runs in full float32.
+     transport-shape numbers ("transport") and their launches in phase 12
+     ("launches_gl_nn_transform"); K2, K2 bf16 and K3 carry their wide-block
+     rows ("wide_blocks", each with its bmm times, "library_ms*"); then
+     {"ok": true, "device": {...}} as the last line.  The script turns TF32
+     off for matmuls and cuDNN, so every product and convolution here runs
+     in full float32.
 
 Any failure exits nonzero.  Imports nothing of JAX.
 
@@ -82,6 +99,7 @@ Run from the repository root:  python3 chip_smoke.py [--seed 0]
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import logging
@@ -892,6 +910,25 @@ def spd_blocks(bs, S, bw, g, dev):
             linv.transpose(-1, -2).triu().to(torch.bfloat16).contiguous())
 
 
+def block_library_call(blocks, x, nt, m, factored):
+    """The PyTorch call computing a time-line block apply, on an f32 copy of
+    the blocks (bs, S, bw, bw): one bmm for B^-1 r (K2), two for W (W^T r)
+    (K3: no single call computes it).  Returns (call, to_vec): the call
+    gives the (bs*S, bw, 1) blocks of the result, to_vec lays them out as
+    the kernels' (bs, n) vector (for the check, outside the timing)."""
+    from mech_nn_discovery_pde_torch.ops import fused_smoother as fs
+
+    bs, S, bw, _ = blocks.shape
+    B = blocks.float().reshape(bs * S, bw, bw)
+    rb = fs.line_vec_to_blocks(x, nt, m).reshape(bs * S, bw, 1).contiguous()
+    if factored:
+        Bt = B.transpose(1, 2)
+        call = lambda: torch.bmm(B, torch.bmm(Bt, rb))  # noqa: E731
+    else:
+        call = lambda: torch.bmm(B, rb)  # noqa: E731
+    return call, lambda z: fs.line_blocks_to_vec(z.reshape(bs, S, bw), nt, m)
+
+
 # (nt, m, S, timed): bw 280 and 350 at bs 2 x 64 lines, timed; bw 245 and
 # 345 (odd, S 6) for correctness only: their blocks are aligned to 4 or 2
 # bytes, which the row-tiled load path copies in 4-byte units or 2-byte loads
@@ -944,13 +981,20 @@ def phase_wide_blocks(dev, seed, bs=2):
                 continue
             ms = time_ms(lambda: kern(blocks, x, nt, d=d_k))
             b2b = time_ms_back_to_back(lambda: kern(blocks, x, nt, d=d_k))
+            lib, to_vec = block_library_call(blocks, x, nt, m, factored)
+            check(f"{label} {'two-bmm' if factored else 'bmm'} yardstick",
+                  rel_err(to_vec(lib()), t_k), 1e-5)
             blk_bytes = bs * S * bw * bw * blocks.element_size()
             flops = (4 if factored else 2) * bs * S * bw * bw
             bnd, by = bound(blk_bytes + 4 * 2 * bs * n, flops)
             row = dict(kernel=key, bw=bw, tiled=tiled, panel_rows=geo.panel_rows,
                        bulk=geo.bulk, max_abs_err=abs_err(t_k, t_p), ms=ms,
-                       ms_back_to_back=b2b, bound_ms=bnd, bound_by=by)
-            msg = f"  {label}: {ms:.4f} ms, back to back {b2b:.4f} ms (bound {bnd:.4f}"
+                       ms_back_to_back=b2b, bound_ms=bnd, bound_by=by,
+                       library_ms=time_ms(lib), library_ms_back_to_back=time_ms_back_to_back(lib))
+            del lib
+            msg = (f"  {label}: {ms:.4f} ms, back to back {b2b:.4f} ms (bound {bnd:.4f}; "
+                   f"library {row['library_ms']:.4f}, back to back "
+                   f"{row['library_ms_back_to_back']:.4f}")
             if factored and tiled:
                 row["bound_ms_w_twice"] = bound(2 * blk_bytes + 4 * 2 * bs * n, flops)[0]
                 msg += f"; reading W twice {row['bound_ms_w_twice']:.4f}"
@@ -965,9 +1009,12 @@ def phase_wide_blocks(dev, seed, bs=2):
             check(f"{label} apply, 4 x S lines", rel_err(t_big, plain(big, xb, nt)), 1e-5)
             row["ms_back_to_back_4S"] = time_ms_back_to_back(lambda: kern(big, xb, nt, d=t_big))
             row["bound_ms_4S"] = bound(4 * blk_bytes + 4 * 2 * bs * 4 * n, 4 * flops)[0]
+            lib, _ = block_library_call(big, xb, nt, m, factored)
+            row["library_ms_back_to_back_4S"] = time_ms_back_to_back(lib)
             log(f"  {label}, {4 * S} lines ({4 * blk_bytes / 1e6:.0f} MB of blocks): back to back "
-                f"{row['ms_back_to_back_4S']:.4f} ms (bound {row['bound_ms_4S']:.4f})")
-            del big, xb, t_big
+                f"{row['ms_back_to_back_4S']:.4f} ms (bound {row['bound_ms_4S']:.4f}; library "
+                f"{row['library_ms_back_to_back_4S']:.4f})")
+            del big, xb, t_big, lib
             rows.append(row)
         del binv, W
     return rows
@@ -1177,6 +1224,198 @@ def phase_transport(dev):
     return counts
 
 
+def phase_kamani(dev, steps=3):
+    """Phase 11: Adam steps of KamaniDiscovery.loss_fn at the KamaniConfig
+    defaults (bs 2048 dense (24,) f32_ir solves with 6 PCG steps, the
+    width-100, depth-9 ResNet1D, f32 nets; the optimizer and LR schedule of
+    build_optimizer) on Kamani data from the port's generator (500
+    amplitudes, into data/kamani/ on first use).  A finite loss, row 3 of
+    the coefficients pinned to [1, 0, 0], |exponents| <= 2; the last step
+    profiled (device busy time, idle share, kernels by time); then the
+    closed-loop error of the learned and of the true model, the latter below
+    0.01 at every amplitude."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mech_nn_discovery_pde_torch.data.datasets import KamaniDataset, PatchLoader
+    from mech_nn_discovery_pde_torch.discovery import kamani
+    from mech_nn_discovery_pde_torch.discovery.common import make_update
+
+    cfg = kamani.KamaniConfig(plot_every=0)
+    t0 = time.perf_counter()
+    ds = KamaniDataset(solver_dim=cfg.solver_dim, data_root=cfg.data_root)
+    log(f"Kamani data ready in {time.perf_counter() - t0:.1f} s: u {ds.u.shape}, "
+        f"{len(ds)} windows")
+    model = kamani.KamaniDiscovery(cfg, ds, device=dev)
+    steps_pe = len(ds) // cfg.batch_size
+    opt, sched = kamani.build_optimizer(cfg, model, steps_pe, steps_pe * cfg.epochs)
+    update = make_update(model.loss_fn, opt, sched)
+    batches = iter(PatchLoader(ds, cfg.batch_size, seed=cfg.seed))
+    times = []
+    for i in range(steps):
+        _, u, _, sd, sdd = next(batches)
+        last = i == steps - 1
+        with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if last
+              else contextlib.nullcontext()) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, aux = update(u, sd, sdd)
+            lv = float(loss)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        log(f"Kamani step {i}: loss {lv:.6e} (u_loss {float(aux['u_loss']):.4e}, var_loss "
+            f"{float(aux['var_loss']):.4e}), fwd rel_rnorm {float(aux['fwd_rel_rnorm']):.3e}, "
+            f"{times[-1]:.4f} s")
+        if not math.isfinite(lv):
+            raise AssertionError(f"Kamani step {i}: loss {lv}")
+    _, busy_us, by_name = kernel_counts(prof)
+    log(f"profiler: Kamani step {steps - 1} device busy {busy_us / 1e3:.2f} ms in "
+        f"{sum(c for _, c in by_name.values())} device activities (idle share "
+        f"{max(0.0, 1 - busy_us / 1e6 / times[-1]):.3f} of the profiled step)")
+    for name, (us, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]:
+        log(f"  {us / 1e3:10.3f} ms  x{c:5d}  {name[:90]}")
+    pr, er = (a.detach().cpu().numpy() for a in model.get_params())
+    if not (pr[3].tolist() == [1.0, 0.0, 0.0] and abs(er).max() <= 2.0):
+        raise AssertionError(f"Kamani parameters: pinned row {pr[3]}, max |er| {abs(er).max()}")
+    t0 = time.perf_counter()
+    learned = kamani.closed_loop_error(pr, er)
+    truth = kamani.closed_loop_error(*kamani.true_params())
+    log(f"closed-loop error ({time.perf_counter() - t0:.1f} s): learned "
+        + ", ".join(f"a={a}: {e:.4g}" for a, e in learned.items()) + "; true model "
+        + ", ".join(f"a={a}: {e:.3e}" for a, e in truth.items()) + " (limit 0.01)")
+    if not max(truth.values()) < 0.01:
+        raise AssertionError(f"closed-loop error of the true model {truth}")
+    return times
+
+
+def phase_gl_transform(dev, steps=3, cfg=None):
+    """Phase 12: Adam steps of GLDiscovery.loss_fn at GLConfig(nn_transform
+    =True) defaults (phase 6's step plus two width-128, depth-12 ResNets on
+    bs x nt = 256 frames of 32 x 32, forward and backward, in float32), then
+    one backward_probe on the last batch.  A finite loss, K1 and K2 launched
+    in the steps, every probe solve finite.  Returns the launch counts of
+    the steps and the probe."""
+    from mech_nn_discovery_pde_torch.data.datasets import PatchLoader, ReactDiffDataset
+    from mech_nn_discovery_pde_torch.discovery.common import make_update
+    from mech_nn_discovery_pde_torch.discovery.ginzburg_landau import GLConfig, GLDiscovery
+    from mech_nn_discovery_pde_torch.ops import _cuda
+
+    cfg = cfg or GLConfig(nn_transform=True)
+    ds = ReactDiffDataset(solver_dim=cfg.solver_dim, data_root=cfg.data_root,
+                          downsample=cfg.downsample, first_equation=cfg.first_equation)
+    model = GLDiscovery(cfg, ds, device=dev)
+    opt = torch.optim.Adam(model.parameters(), lr=cfg.lr)
+    update = make_update(model.loss_fn, opt)
+    batches = iter(PatchLoader(ds, cfg.batch_size, seed=cfg.seed))
+    torch.cuda.synchronize()
+    _cuda.LAUNCHES.clear()
+    for i in range(steps):
+        u, v, _, _, _ = next(batches)
+        t0 = time.perf_counter()
+        loss, aux = update(u, v)
+        lv = float(loss)
+        torch.cuda.synchronize()
+        log(f"GL nn_transform step {i}: loss {lv:.6e}  fwd iters {float(aux['fwd_iters']):.1f}  "
+            f"fwd rel_rnorm {float(aux['fwd_rel_rnorm']):.3e}  {time.perf_counter() - t0:.3f} s")
+        if not math.isfinite(lv):
+            raise AssertionError(f"non-finite loss at GL nn_transform step {i}")
+    torch.cuda.synchronize()
+    counts = dict(_cuda.LAUNCHES)
+    _cuda.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    st = model.backward_probe(u, v)
+    torch.cuda.synchronize()
+    counts_p = dict(_cuda.LAUNCHES)
+    log(f"GL nn_transform launches (steps): {counts}; backward probe "
+        f"{time.perf_counter() - t0:.3f} s: iters {st['iters'].tolist()}, rel_rnorm max "
+        f"{float(st['rel_rnorm'].max()):.3e} mean {float(st['rel_rnorm'].mean()):.3e}, "
+        f"launches {counts_p}")
+    for n in ("k1_stencil_apply", "k2_line_block_apply"):
+        if counts.get(n, 0) == 0 or counts_p.get(n, 0) == 0:
+            raise AssertionError(f"GL nn_transform: {n} launched {counts.get(n, 0)} times in "
+                                 f"the steps, {counts_p.get(n, 0)} in the probe")
+    if not bool(st["finite"].all()):
+        raise AssertionError(f"backward probe: non-finite solves {st['finite'].tolist()}")
+    return counts
+
+
+def phase_resume(dev):
+    """Phase 13: Kamani train() for 1 epoch of 1 step with a checkpoint
+    every epoch, in a fresh run directory under logs/; then train() again
+    with resume_from that directory and 2 epochs.  The second run must
+    start at epoch 1 from the checkpoint's parameters, Adam moments and
+    scheduler step bit for bit, and its one step must move the
+    parameters.  The run directory is removed afterwards."""
+    import os
+    import shutil
+    import tempfile
+
+    from mech_nn_discovery_pde_torch.discovery import kamani
+
+    started = []
+
+    class Probe(kamani.TrainHarness):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            started.append((self, self.start_epoch, copy_state(self.state_dict())))
+
+    os.makedirs("logs", exist_ok=True)
+    run_dir = tempfile.mkdtemp(prefix="chip_smoke_kamani_", dir="logs")
+    kw = dict(steps_per_epoch=1, ckpt_every=1, plot_every=0, resume_from=run_dir)
+    own = kamani.TrainHarness
+    kamani.TrainHarness = Probe
+    try:
+        t0 = time.perf_counter()
+        kamani.train(kamani.KamaniConfig(epochs=1, **kw), device=dev)
+        t1 = time.perf_counter()
+        saved = torch.load(os.path.join(run_dir, "ckpt", "0.pt"), map_location=dev,
+                           weights_only=True)
+        model = kamani.train(kamani.KamaniConfig(epochs=2, **kw), device=dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        (_, e0, _), (h, e1, resumed) = started
+        diff = first_difference(resumed, saved)
+        moved = any(not torch.equal(p, saved["model"][n]) for n, p in model.state_dict().items())
+        log(f"resume: first run {t1 - t0:.2f} s, resumed run {t2 - t1:.2f} s; start epochs "
+            f"{e0}, {e1}; restored state equal to the checkpoint: {diff is None}; scheduler "
+            f"step {resumed['scheduler']['last_epoch']}; parameters moved by the resumed step: "
+            f"{moved}\nresumed run's phase timings:\n{h.timer.report()}")
+        if (e0, e1) != (0, 1) or diff is not None or not moved:
+            raise AssertionError(f"resume: start epochs {e0}, {e1}; first difference {diff}; "
+                                 f"moved {moved}")
+    finally:
+        kamani.TrainHarness = own
+        shutil.rmtree(run_dir, ignore_errors=True)
+
+
+def copy_state(x):
+    """A deep copy of a state dict (tensors cloned)."""
+    if torch.is_tensor(x):
+        return x.clone()
+    if isinstance(x, dict):
+        return {k: copy_state(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(copy_state(v) for v in x)
+    return x
+
+
+def first_difference(a, b, path="state"):
+    """The path of the first entry where a and b differ (tensors bit for bit,
+    dtype included), or None."""
+    if torch.is_tensor(b):
+        same = torch.is_tensor(a) and a.dtype == b.dtype and torch.equal(a, b.to(a.device))
+        return None if same else path
+    if isinstance(b, dict):
+        if a.keys() != b.keys():
+            return path
+        return next((d for k in b if (d := first_difference(a[k], b[k], f"{path}.{k}"))), None)
+    if isinstance(b, (list, tuple)):
+        if len(a) != len(b):
+            return path
+        return next((d for i, (x, y) in enumerate(zip(a, b))
+                     if (d := first_difference(x, y, f"{path}[{i}]"))), None)
+    return None if a == b else path
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1248,6 +1487,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_sine(dev)
     counts_t = phase_transport(dev)
+    torch.cuda.empty_cache()
+    phase_kamani(dev)
+    torch.cuda.empty_cache()
+    counts_nt = phase_gl_transform(dev)
+    torch.cuda.empty_cache()
+    phase_resume(dev)
 
     stencil = "mech_nn_discovery_pde_torch/csrc/stencil_apply.cu"
     line = "mech_nn_discovery_pde_torch/csrc/line_block.cu"
@@ -1272,6 +1517,9 @@ def main() -> int:
                     launches_in=path, **report[key],
                     **({"wide_blocks": wide_rows[key]} if key in wide_rows else {}))
                for n, src, rep, path, c, key in kernels]
+    # K1 and K2 also carry their launches on the GL nn_transform path (phase 12)
+    for kd in kernels[0], kernels[2]:
+        kd["launches_gl_nn_transform"] = counts_nt.get(kd["name"], 0)
     for kd in kernels:
         if kd["launches"] == 0:
             raise AssertionError(f"{kd['name']} was not launched in the {kd['launches_in']}")

@@ -1,8 +1,8 @@
 """Patch-slicing dataset + a simple batch loader (numpy).
 
-Copy of the JAX package's data/datasets.py, limited to the workloads
-ported so far: `BurgersDataset`, `ReactDiffDataset` and `PatchLoader`, with
-the data-fault knobs (percent Gaussian noise, frame dropping with a loss
+Copy of the JAX package's data/datasets.py: `BurgersDataset`,
+`KamaniDataset`, `ReactDiffDataset` and `PatchLoader`, with the data-fault
+knobs (percent Gaussian noise, frame dropping with a loss
 mask) seeded as there, so both packages make the same arrays.
 """
 
@@ -54,6 +54,41 @@ class BurgersDataset:
         t0 = t_i * self.solver_dim[0]
         patch = self.data[t0 : t0 + self.solver_dim[0], x_i : x_i + self.solver_dim[1]]
         return patch, t0, x_i
+
+
+class KamaniDataset:
+    """Kamani stress trajectories under oscillatory shear: slices the
+    (nt, n_amp) array into time windows per amplitude; items carry the shear
+    and its derivatives: (t, u, shear, shear_d, shear_dd)."""
+
+    def __init__(self, solver_dim=(24,), data_root: str = "data",
+                 noise_percent: float = 0.0, seed: int = 0):
+        rng = np.random.default_rng(seed)
+        d = generate.ensure_dataset("kamani", data_root)
+        u, t = d["u"], d["t"]
+        if noise_percent:
+            u = add_percent_noise(u, noise_percent, rng)
+        self.u = u
+        self.t = t
+        self.t_step = float(t[1] - t[0])
+        self.amps = np.logspace(-3, 1, u.shape[1])
+        self.solver_dim = solver_dim
+        self.num_t_idx = u.shape[0] // solver_dim[0]
+        self.num_amp_idx = u.shape[1]
+
+    def __len__(self):
+        return self.num_t_idx * self.num_amp_idx
+
+    def __getitem__(self, idx):
+        amp_i, t_i = np.unravel_index(idx, (self.num_amp_idx, self.num_t_idx))
+        t0 = t_i * self.solver_dim[0]
+        sl = slice(t0, t0 + self.solver_dim[0])
+        t = self.t[sl]
+        amp = self.amps[amp_i]
+        shear = amp * np.sin(t)
+        shear_d = amp * np.cos(t)
+        shear_dd = -amp * np.sin(t)
+        return t, self.u[sl, amp_i], shear, shear_d, shear_dd
 
 
 class ReactDiffDataset:

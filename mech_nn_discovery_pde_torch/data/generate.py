@@ -1,13 +1,16 @@
 """Synthetic dataset generation for the port's workloads.
 
 Copy of the JAX package's data/generate.py (numpy only), limited to the
-workloads ported so far: Burgers, Ginzburg-Landau and the sine fit.  Files
-live under data_root/<name>/ in the same format and under the same names, so
+workloads: Burgers, Kamani, Ginzburg-Landau and the sine fit.  Files live
+under data_root/<name>/ in the same format and under the same names, so
 either package reads the other's data.
 
 - Burgers:   u_t + u u_x = nu u_xx, periodic, pseudo-spectral (exact
              nonlinearity via FFT, RK4 in time), nu = 0.1, grid 128 x 256,
              domain 20, t-step 0.025
+- Kamani:    Herschel-Bulkley/Kamani stress ODE under oscillatory shear,
+             amplitudes logspace(-3, 1, 500), 1000 time points over 5
+             periods (scipy solve_ivp per amplitude)
 - Ginzburg-Landau: complex GL  A_t = A + (1+ia) lap A - (1+ib)|A|^2 A on a
              periodic 2D grid, spectral RK4; real/imag parts saved as u/v
 - Sine fit:  damped sine surface
@@ -60,6 +63,48 @@ def burgers(
             k4 = rhs(u + dt * k3)
             u = u + dt / 6 * (k1 + 2 * k2 + 2 * k3 + k4)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Kamani rheology ODE
+# ---------------------------------------------------------------------------
+
+KAMANI_PARAMS = dict(tau_y=94.0, k=27.93, n=0.416, G=430.0, eta_s=23.0)
+
+
+def kamani_rhs(t, tau, amplitude, frequency, p=KAMANI_PARAMS):
+    """True Kamani material model stress rate."""
+    shear_rate = amplitude * frequency * np.cos(frequency * t)
+    shear_rate_rate = -amplitude * frequency**2 * np.sin(frequency * t)
+    eps = 1e-10
+    nrm = np.abs(shear_rate)
+    herschel = p["tau_y"] / (nrm + eps) + p["k"] * nrm ** (p["n"] - 1)
+    relax = (herschel + p["eta_s"]) / p["G"]
+    out = herschel * (shear_rate + (p["eta_s"] / p["G"]) * shear_rate_rate) - tau
+    return out / relax
+
+
+def kamani(
+    n_t: int = 1000,
+    n_amp: int = 500,
+    frequency: float = 1.0,
+    num_periods: int = 5,
+):
+    """(n_t, n_amp) stress trajectories + (n_t,) times, one column per shear
+    amplitude in logspace(-3, 1, n_amp)."""
+    from scipy.integrate import solve_ivp
+
+    t_max = num_periods * 2 * np.pi / frequency
+    t_eval = np.linspace(0, t_max, n_t)
+    amps = np.logspace(-3, 1, n_amp)
+    out = np.empty((n_t, n_amp))
+    for j, a in enumerate(amps):
+        sol = solve_ivp(
+            kamani_rhs, [0, t_max], [0.0], t_eval=t_eval, args=(a, frequency),
+            rtol=1e-8, atol=1e-10,
+        )
+        out[:, j] = sol.y[0]
+    return out, t_eval
 
 
 # ---------------------------------------------------------------------------
@@ -151,6 +196,14 @@ def ensure_dataset(name: str, data_root: str = "data", **gen_kwargs) -> dict:
         return {"u": cached("burgers_nu0.1_128x256.npy", lambda: burgers(**gen_kwargs))}
     if name == "sine":
         return {"u": cached("damped_sine_32x32.npy", lambda: damped_sine(**gen_kwargs))}
+    if name == "kamani":
+        def gen():
+            u, t = kamani(**gen_kwargs)
+            np.save(os.path.join(d, "times.npy"), t)
+            return u
+        u = cached("kamani_traj.npy", gen)
+        t = np.load(os.path.join(d, "times.npy"))
+        return {"u": u, "t": t}
     if name == "ginzburg":
         def gen_r():
             A = ginzburg_landau(**gen_kwargs)
@@ -159,5 +212,4 @@ def ensure_dataset(name: str, data_root: str = "data", **gen_kwargs) -> dict:
         Ar = cached("Ar.npy", gen_r)
         Ai = np.load(os.path.join(d, "Ai.npy"))
         return {"u": Ar, "v": Ai}
-    raise ValueError(f"unknown dataset {name} (the port generates 'burgers', 'ginzburg' "
-                     f"and 'sine')")
+    raise ValueError(f"unknown dataset {name}")

@@ -13,16 +13,16 @@ full field once per step (`nn_transform`), patches are gathered at the
 batch's (t, x) offsets, three depth-3 ParamNets emit 5 basis coefficients
 each, boundary values come from the denoised patches, and the loss is
 |u0 - data| * frame_mask + |up - u0| + l1 * |params|.  The training loop is
-plain Adam; checkpoints and resume are not ported yet.
+Adam in a run directory (logs/burgers/<n>) with a log, source provenance and
+checkpoints, and resumes from one (`resume_from`).
 
 Run:  python -m mech_nn_discovery_pde_torch.discovery.burgers [--epochs N]
-      [--steps-per-epoch N] [--device cuda]
+      [--steps-per-epoch N] [--resume-from RUN_DIR] [--device cuda]
 """
 
 from __future__ import annotations
 
 import argparse
-import logging
 import time
 from dataclasses import dataclass, field
 from typing import Dict, Optional
@@ -33,11 +33,13 @@ from torch import nn
 
 from mech_nn_discovery_pde_torch.config import PDEConfig
 from mech_nn_discovery_pde_torch.data.datasets import BurgersDataset, PatchLoader
-from mech_nn_discovery_pde_torch.discovery.common import fixed_steps, make_update
+from mech_nn_discovery_pde_torch.discovery.common import TrainHarness, fixed_steps, make_update
 from mech_nn_discovery_pde_torch.layers.dense import PDEDenseLayer
 from mech_nn_discovery_pde_torch.models import resnet
 from mech_nn_discovery_pde_torch.models.paramnet import ParamNet
 from mech_nn_discovery_pde_torch.models.paramnet import state_dict_from_flax as paramnet_state_dict
+from mech_nn_discovery_pde_torch.utils import logger as logging_util
+from mech_nn_discovery_pde_torch.utils import rundir
 
 
 @dataclass
@@ -53,6 +55,9 @@ class BurgersConfig:
     steps_per_epoch: Optional[int] = None  # None = full pass
     seed: int = 10
     data_root: str = "data"
+    # resume training from an existing run dir's checkpoints (else new run)
+    resume_from: Optional[str] = None
+    ckpt_every: int = 25
     pde: PDEConfig = field(
         default_factory=lambda: PDEConfig(precision="f32_ir", log_solves=True)
     )
@@ -168,9 +173,17 @@ def state_dict_from_flax(params) -> Dict[str, torch.Tensor]:
 
 
 def train(cfg: Optional[BurgersConfig] = None, log=None, device="cuda"):
-    """Adam training loop; logs the loss and the learned equation per epoch."""
+    """Adam training loop in a run directory (logs/burgers/<n>, or
+    `cfg.resume_from`, whose latest checkpoint it resumes); logs the loss
+    and the learned equation per epoch and checkpoints every `ckpt_every`.
+    Returns the model."""
     cfg = cfg or BurgersConfig()
-    log = log or logging.getLogger("burgers")
+    if cfg.resume_from:
+        log_dir, run_id = cfg.resume_from, cfg.resume_from
+    else:
+        log_dir, run_id = rundir.create_log_dir(root="logs/burgers", reuse=False)
+    rundir.write_source_files(log_dir)
+    log = log or logging_util.setup(log_dir, name="burgers")
     log.info(f"Burgers viscous discovery, solver dim {cfg.solver_dim}")
     ds = BurgersDataset(solver_dim=cfg.solver_dim, data_root=cfg.data_root,
                         noise_percent=cfg.noise_percent, frame_drop_prob=cfg.frame_drop_prob)
@@ -178,25 +191,30 @@ def train(cfg: Optional[BurgersConfig] = None, log=None, device="cuda"):
     optimizer = torch.optim.Adam(model.parameters(), lr=cfg.lr)
     update = make_update(model.loss_fn, optimizer)
     loader = PatchLoader(ds, cfg.batch_size, seed=cfg.seed)
-    for epoch in range(cfg.epochs):
+    harness = TrainHarness(log_dir, model, optimizer, log=log, ckpt_every=cfg.ckpt_every,
+                           device=device)
+    for epoch in range(harness.start_epoch, cfg.epochs):
         losses = []
         t0 = time.perf_counter()
         for i, (patch, t_idx, x_idx) in enumerate(loader):
             if cfg.steps_per_epoch and i >= cfg.steps_per_epoch:
                 break
-            loss, _ = update(patch, t_idx, x_idx)
-            losses.append(float(loss))
+            with harness.timer.phase("update"):
+                loss, _ = update(patch, t_idx, x_idx)
+                losses.append(float(loss))
         log.info("Learned\n" + print_eq(model.get_params().detach().cpu().numpy()))
-        log.info(f"epoch {epoch}, loss {np.mean(losses):.3E}, "
+        log.info(f"run {run_id} epoch {epoch}, loss {np.mean(losses):.3E}, "
                  f"{time.perf_counter() - t0:.1f} s")
+        harness.end_epoch(epoch)
     return model
 
 
 if __name__ == "__main__":
-    logging.basicConfig(level=logging.INFO)
     ap = argparse.ArgumentParser(description="Burgers discovery (dense path)")
     ap.add_argument("--epochs", type=int, default=BurgersConfig.epochs)
     ap.add_argument("--steps-per-epoch", type=int, default=None)
+    ap.add_argument("--resume-from", default=None)
     ap.add_argument("--device", default="cuda")
     a = ap.parse_args()
-    train(BurgersConfig(epochs=a.epochs, steps_per_epoch=a.steps_per_epoch), device=a.device)
+    train(BurgersConfig(epochs=a.epochs, steps_per_epoch=a.steps_per_epoch,
+                        resume_from=a.resume_from), device=a.device)

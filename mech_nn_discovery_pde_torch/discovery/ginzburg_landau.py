@@ -7,18 +7,22 @@ Learn one equation of the coupled complex GL system (u = Re A, v = Im A) as
 over bases {1, u, u^2, v, v^2, uv} for p0, {1, u, u^2} for p1/p2 and
 {v, v^2, v^3} for p3, from (8, 32, 32) t-x-y patches through the
 MultigridLayer (n_grid 3, downsample_first=False).  Five boundary faces
-provide Dirichlet data.
+provide Dirichlet data.  With `nn_transform`, two 2D ResNets (width 128,
+depth 12) denoise u and v frame by frame, in float32, before the bases and
+the boundary data are built.
 
-Port of the JAX package's discovery/ginzburg_landau.py with
-`nn_transform=False` (its default); the ResNet transform, checkpoints and
-resume are not ported yet.
+Port of the JAX package's discovery/ginzburg_landau.py: the training loop
+writes a run directory (logs/gl/<n>) with a log, source provenance and
+checkpoints, resumes from one (`resume_from`), and can probe the backward
+solve's convergence every few epochs (`backward_probe_every`).
 
 Run:  python -m mech_nn_discovery_pde_torch.discovery.ginzburg_landau
+      [--epochs N] [--steps-per-epoch N] [--resume-from RUN_DIR] [--device cuda]
 """
 
 from __future__ import annotations
 
-import logging
+import argparse
 import time
 from dataclasses import dataclass, field
 from typing import Dict, Optional
@@ -29,10 +33,13 @@ from torch import nn
 
 from mech_nn_discovery_pde_torch.config import PDEConfig
 from mech_nn_discovery_pde_torch.data.datasets import PatchLoader, ReactDiffDataset
-from mech_nn_discovery_pde_torch.discovery.common import fixed_steps, make_update
+from mech_nn_discovery_pde_torch.discovery.common import TrainHarness, fixed_steps, make_update
 from mech_nn_discovery_pde_torch.layers.multigrid import MultigridLayer
+from mech_nn_discovery_pde_torch.models import resnet
 from mech_nn_discovery_pde_torch.models.paramnet import ParamNet
 from mech_nn_discovery_pde_torch.models.paramnet import state_dict_from_flax as paramnet_state_dict
+from mech_nn_discovery_pde_torch.utils import logger as logging_util
+from mech_nn_discovery_pde_torch.utils import rundir
 
 
 @dataclass
@@ -43,6 +50,8 @@ class GLConfig:
     lr: float = 1e-5
     epochs: int = 500
     steps_per_epoch: Optional[int] = None
+    resume_from: Optional[str] = None
+    ckpt_every: int = 25
     threshold: float = 0.1
     first_equation: bool = True
     nn_transform: bool = False
@@ -50,6 +59,8 @@ class GLConfig:
     noise_percent: float = 0.0
     seed: int = 10
     data_root: str = "data"
+    # run the backward-solve convergence probe every N epochs (0 = off)
+    backward_probe_every: int = 0
     # f32 outer FGMRES, per-solve forward diagnostics returned in-band
     pde: PDEConfig = field(
         default_factory=lambda: PDEConfig(
@@ -89,8 +100,6 @@ class GLDiscovery(nn.Module):
     def __init__(self, cfg: GLConfig, ds: ReactDiffDataset, device="cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.nn_transform:
-            raise NotImplementedError("nn_transform=True (ResNet transform) is not ported yet")
         self.cfg = cfg
         self.device = torch.device(device)
         dims = cfg.solver_dim
@@ -101,6 +110,11 @@ class GLDiscovery(nn.Module):
         )
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        if cfg.nn_transform:  # the JAX package builds them always, applies them only here
+            self.rnet1 = resnet.ResNet(out_channels=1, in_channels=1, device=device,
+                                       generator=generator)
+            self.rnet2 = resnet.ResNet(out_channels=1, in_channels=1, device=device,
+                                       generator=generator)
         self.pnets = nn.ModuleList(
             ParamNet(n_out=10, depth=2, device=device, generator=generator) for _ in range(4)
         )
@@ -125,12 +139,25 @@ class GLDiscovery(nn.Module):
             u[:, 1:d0, 1 : d1 - 1, d2 - 1].reshape(bs, -1),
         ], dim=-1)
 
+    def _transform(self, net, w):
+        """The ResNet on each time frame of w (bs, nt, nx, ny), in float32,
+        cast back to w's dtype."""
+        bs, dims = self.cfg.batch_size, self.cfg.solver_dim
+        x = w.reshape(bs * dims[0], dims[1], dims[2], 1).float()
+        return net(x).reshape(bs, *dims).to(w.dtype)
+
     def _assemble(self, u, v):
-        """(coeffs, rhs, iv_rhs, pl) for one batch."""
-        iv_rhs = self.get_iv(u)
+        """(coeffs, rhs, iv_rhs, up, vp, pl) for one batch, shared by the
+        training forward and the backward-convergence probe; up and vp are
+        the (possibly identity) learned transforms of u and v."""
+        if self.cfg.nn_transform:
+            up, vp = self._transform(self.rnet1, u), self._transform(self.rnet2, v)
+        else:
+            up, vp = u, v
+        iv_rhs = self.get_iv(up)
         bs = self.cfg.batch_size
-        up0 = u.reshape(bs, -1)
-        vp0 = v.reshape(bs, -1)
+        up0 = up.reshape(bs, -1)
+        vp0 = vp.reshape(bs, -1)
         pl = self.get_params()
         one = torch.ones_like(up0)
         basis0 = torch.stack([one, up0, up0**2, vp0, vp0**2, up0 * vp0], dim=-1)
@@ -143,26 +170,46 @@ class GLDiscovery(nn.Module):
         zero = torch.zeros_like(p0)
         # 3D mi order: [u, u_t, u_x, u_y, u_tt, u_xx, u_yy]
         coeffs = torch.stack([p0, torch.ones_like(p0), zero, zero, zero, p1, p2], dim=-1)
-        return coeffs, p3, iv_rhs, pl
+        return coeffs, p3, iv_rhs, up0, vp0, pl
 
     def forward(self, u, v):
+        """(u0, up, vp, pl, stats), u0/up/vp flattened to (bs, grid)."""
         bs = self.cfg.batch_size
-        coeffs, rhs, iv_rhs, pl = self._assemble(u, v)
+        coeffs, rhs, iv_rhs, up, vp, pl = self._assemble(u, v)
         u0, _, stats = self.layer(coeffs, rhs, iv_rhs, list(self.steps))
-        return u0.reshape(bs, -1), pl, stats
+        return u0.reshape(bs, -1), up, vp, pl, stats
 
-    def loss_fn(self, u, v):
-        """|u0 - u| + |u' - u| + |v' - v| + 1e-4 L1(params); u' = u and
-        v' = v without the learned transform."""
+    @torch.no_grad()
+    def backward_probe(self, u, v):
+        """Backward-solve convergence on a representative cotangent (the
+        normalized data field scattered into the solution-value slots):
+        `MultigridLayer.backward_stats` on this batch's system."""
         bs = self.cfg.batch_size
         u = torch.as_tensor(u, device=self.device)
         v = torch.as_tensor(v, device=self.device)
-        u0, pl, stats = self(u, v)
+        coeffs, rhs, iv_rhs, _, _, _ = self._assemble(u, v)
+        gu = u.reshape(bs, -1)
+        gu = gu / torch.clamp(torch.linalg.vector_norm(gu, dim=1, keepdim=True), min=1e-30)
+        g = torch.zeros((bs, self.layer.grid_size, self.layer.n_orders), dtype=gu.dtype,
+                        device=gu.device)
+        g[..., 0] = gu
+        return self.layer.backward_stats(coeffs, rhs, iv_rhs, list(self.steps),
+                                         g.reshape(bs, -1))
+
+    def loss_fn(self, u, v):
+        """|u0 - u| + |u' - u| + |v' - v| + 1e-4 L1(params), where u'/v' are
+        the (possibly identity) learned transforms of the raw fields.  The
+        JAX package applies rnet2 to v a second time here; its value is the
+        vp of the forward (the same function of the same inputs)."""
+        bs = self.cfg.batch_size
+        u = torch.as_tensor(u, device=self.device)
+        v = torch.as_tensor(v, device=self.device)
+        u0, up, vp, pl, stats = self(u, v)
         target_u = u.reshape(bs, -1)
         target_v = v.reshape(bs, -1)
         u_loss = (u0 - target_u).abs().mean(dim=-1)
-        var_u_loss = (target_u - target_u).abs().mean(dim=-1)
-        var_v_loss = (target_v - target_v).abs().mean(dim=-1)
+        var_u_loss = (up - target_u).abs().mean(dim=-1)
+        var_v_loss = (vp - target_v).abs().mean(dim=-1)
         param_loss = sum(p.abs().sum() for p in pl)
         loss = u_loss.mean() + var_u_loss.mean() + var_v_loss.mean() + 1e-4 * param_loss
         aux = {"u_loss": u_loss.mean().detach(), "var_u_loss": var_u_loss.mean().detach()}
@@ -172,20 +219,34 @@ class GLDiscovery(nn.Module):
         return loss, aux
 
 
-def state_dict_from_flax(params) -> Dict[str, torch.Tensor]:
+def state_dict_from_flax(params, nn_transform: bool = False) -> Dict[str, torch.Tensor]:
     """The JAX package's `GLDiscovery.init` parameters (flax pytree, numpy
-    arrays) as this module's state_dict.  The ResNet entries (unused with
-    nn_transform=False) are dropped."""
+    arrays) as the state_dict of a model built with `nn_transform`: the
+    ResNet entries map to rnet1/rnet2 with it and are dropped without it
+    (the port builds the ResNets only where it applies them)."""
     sd = {}
+    if nn_transform:
+        for name in ("rnet1", "rnet2"):
+            sd.update({f"{name}.{k}": v
+                       for k, v in resnet.state_dict_from_flax(params[name]).items()})
     for i, p in enumerate(params["pnets"]):
         sd.update({f"pnets.{i}.{k}": v for k, v in paramnet_state_dict(p).items()})
     return sd
 
 
 def train(cfg: Optional[GLConfig] = None, log=None, device="cuda"):
-    """Adam training loop; logs the loss and forward-solve stats per epoch."""
+    """Adam training loop in a run directory (logs/gl/<n>, or
+    `cfg.resume_from`, whose latest checkpoint it resumes); logs the learned
+    equation, the loss and forward-solve stats per epoch, the backward
+    probe every `backward_probe_every` epochs, and checkpoints every
+    `ckpt_every`.  Returns the model."""
     cfg = cfg or GLConfig()
-    log = log or logging.getLogger("gl")
+    if cfg.resume_from:
+        log_dir, run_id = cfg.resume_from, cfg.resume_from
+    else:
+        log_dir, run_id = rundir.create_log_dir(root="logs/gl", reuse=False)
+    rundir.write_source_files(log_dir)
+    log = log or logging_util.setup(log_dir, name="gl")
     log.info(f"Ginzburg-Landau discovery, solver dim {cfg.solver_dim}")
     ds = ReactDiffDataset(
         solver_dim=cfg.solver_dim, data_root=cfg.data_root,
@@ -196,25 +257,41 @@ def train(cfg: Optional[GLConfig] = None, log=None, device="cuda"):
     optimizer = torch.optim.Adam(model.parameters(), lr=cfg.lr)
     update = make_update(model.loss_fn, optimizer)
     loader = PatchLoader(ds, cfg.batch_size, seed=cfg.seed)
-    for epoch in range(cfg.epochs):
+    harness = TrainHarness(log_dir, model, optimizer, log=log, ckpt_every=cfg.ckpt_every,
+                           device=device)
+    for epoch in range(harness.start_epoch, cfg.epochs):
         losses, aux = [], {}
         t0 = time.perf_counter()
         for i, (u, v, _, _, _) in enumerate(loader):
             if cfg.steps_per_epoch and i >= cfg.steps_per_epoch:
                 break
-            loss, aux = update(u, v)
-            losses.append(float(loss))
+            with harness.timer.phase("update"):
+                loss, aux = update(u, v)
+                losses.append(float(loss))
         pl = [p.detach().cpu().numpy() for p in model.get_params()]
         log.info(print_eq(pl))
-        msg = (f"epoch {epoch}, loss {np.mean(losses):.3E}, "
+        msg = (f"run {run_id} epoch {epoch}, loss {np.mean(losses):.3E}, "
                f"{time.perf_counter() - t0:.1f} s")
         if "fwd_iters" in aux:
             msg += (f"  fwd solve iters {float(aux['fwd_iters']):.1f}"
                     f" rel_rnorm {float(aux['fwd_rel_rnorm']):.2e}")
         log.info(msg)
+        if cfg.backward_probe_every and (epoch + 1) % cfg.backward_probe_every == 0:
+            with harness.timer.phase("backward_probe"):
+                bs_ = model.backward_probe(u, v)
+                log.info(f"bwd solve iters {float(bs_['iters'].double().mean()):.1f} "
+                         f"rel_rnorm {float(bs_['rel_rnorm'].max()):.2e} "
+                         f"finite {bool(bs_['finite'].all())}")
+        harness.end_epoch(epoch)
     return model
 
 
 if __name__ == "__main__":
-    logging.basicConfig(level=logging.INFO)
-    train()
+    ap = argparse.ArgumentParser(description="Ginzburg-Landau discovery (multigrid path)")
+    ap.add_argument("--epochs", type=int, default=GLConfig.epochs)
+    ap.add_argument("--steps-per-epoch", type=int, default=None)
+    ap.add_argument("--resume-from", default=None)
+    ap.add_argument("--device", default="cuda")
+    a = ap.parse_args()
+    train(GLConfig(epochs=a.epochs, steps_per_epoch=a.steps_per_epoch,
+                   resume_from=a.resume_from), device=a.device)

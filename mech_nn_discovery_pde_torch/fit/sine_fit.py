@@ -3,8 +3,8 @@
 Fit a damped sine surface on a (32, 32) grid by learning constant PDE
 coefficients and a source term directly (no discovery bases): MLP heads over
 a learned latent produce the per-mi coefficients and the rhs grid; boundary
-values are the data's four edges.  Port of the JAX package's fit/sine_fit.py
-with a plain Adam loop.
+values are the data's four edges.  Port of the JAX package's fit/sine_fit.py:
+an Adam loop that logs into a run directory (logs/sine_fit/<n>).
 
 Run:  python -m mech_nn_discovery_pde_torch.fit.sine_fit [--epochs N] [--device cuda]
 """
@@ -12,7 +12,6 @@ Run:  python -m mech_nn_discovery_pde_torch.fit.sine_fit [--epochs N] [--device 
 from __future__ import annotations
 
 import argparse
-import logging
 from dataclasses import dataclass, field
 from typing import Dict, Optional
 
@@ -25,6 +24,8 @@ from mech_nn_discovery_pde_torch.data.generate import damped_sine
 from mech_nn_discovery_pde_torch.discovery.common import fixed_steps, make_update
 from mech_nn_discovery_pde_torch.layers.dense import PDEDenseLayer
 from mech_nn_discovery_pde_torch.models.paramnet import lecun_normal_
+from mech_nn_discovery_pde_torch.utils import logger as logging_util
+from mech_nn_discovery_pde_torch.utils import rundir
 
 
 @dataclass
@@ -122,7 +123,8 @@ class SineFit(nn.Module):
 def train(cfg: Optional[SineFitConfig] = None, log=None, device="cuda"):
     """Adam on the mean squared error; returns (model, loss history)."""
     cfg = cfg or SineFitConfig()
-    log = log or logging.getLogger("sine_fit")
+    log_dir, _ = rundir.create_log_dir(root="logs/sine_fit", reuse=False)
+    log = log or logging_util.setup(log_dir, name="sine_fit")
     log.info(f"Sine PDE fit, grid {cfg.coord_dims}")
     model = SineFit(cfg, device=device)
     y = torch.as_tensor(damped_sine(cfg.coord_dims), device=model.device)
@@ -138,7 +140,6 @@ def train(cfg: Optional[SineFitConfig] = None, log=None, device="cuda"):
 
 
 if __name__ == "__main__":
-    logging.basicConfig(level=logging.INFO)
     ap = argparse.ArgumentParser(description="Sine-surface PDE fit (dense path)")
     ap.add_argument("--epochs", type=int, default=SineFitConfig.epochs)
     ap.add_argument("--device", default="cuda")

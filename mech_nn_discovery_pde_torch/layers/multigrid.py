@@ -105,6 +105,20 @@ class MultigridLayer:
         return u[..., 0], u, stats
 
     @torch.no_grad()
+    def backward_stats(self, coeffs, rhs, iv_rhs, steps_list, g):
+        """Backward-solve diagnostic: solve AtA dz = g (g an output cotangent,
+        (bs*n_ind_dim, num_vars)) with the backward budgets, on a hierarchy
+        built fresh (no forward solve), and report per sample the FGMRES
+        iterations, 'rnorm', 'rel_rnorm' and 'finite'.  Not differentiable;
+        meant every few epochs, not per step."""
+        values, _, hier = self._prepare(coeffs, rhs, iv_rhs, steps_list)
+        g = self._to(g).reshape(values.shape[0], -1)
+        dz, iters, rnorm = self.mg_solver.solve_normal(values, g, hier, back=True)
+        gn = torch.clamp(torch.linalg.vector_norm(g, dim=1), min=1e-30)
+        return {"iters": iters, "rnorm": rnorm, "rel_rnorm": rnorm / gn,
+                "finite": torch.isfinite(dz).all(dim=1)}
+
+    @torch.no_grad()
     def solve_stats(self, coeffs, rhs, iv_rhs, steps_list):
         """Diagnostic forward solve: per-sample FGMRES iteration counts and
         absolute/relative residual norms.  Not differentiable."""

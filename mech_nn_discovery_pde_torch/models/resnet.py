@@ -16,7 +16,9 @@ is False.
 
 Initialisation follows the JAX package's flax defaults (kernels lecun-normal
 truncated at 2 std with fan_in = in channels x kernel volume, zero biases),
-drawn from an explicit `torch.Generator`; the tests load the JAX package's
+or PyTorch's own layer defaults with `torch_init`, drawn from an explicit
+`torch.Generator`; `dtype` is the parameters' type (the JAX package's
+`param_dtype`: f32 or f64 nets).  The tests load the JAX package's
 parameters instead (`state_dict_from_flax`).
 """
 
@@ -28,7 +30,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from mech_nn_discovery_pde_torch.models.paramnet import lecun_normal_
+from mech_nn_discovery_pde_torch.models.paramnet import init_layer_
 
 _CONV = {1: nn.Conv1d, 2: nn.Conv2d, 3: nn.Conv3d}
 
@@ -45,13 +47,15 @@ class ResNet(nn.Module):
     """(bs, H, W, in_channels) -> (bs, H, W, out_channels)."""
 
     def __init__(self, out_channels: int = 1, in_channels: int = 1, width: int = 128,
-                 depth: int = 12, device="cuda", generator: Optional[torch.Generator] = None):
+                 depth: int = 12, dtype=torch.float32, torch_init: bool = False, device="cuda",
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         chans = [in_channels] + [width] * (depth + 1) + [out_channels]
         self.convs = nn.ModuleList(
-            nn.Conv2d(a, b, 5, padding=2, device=device) for a, b in zip(chans[:-1], chans[1:]))
+            nn.Conv2d(a, b, 5, padding=2, dtype=dtype, device=device)
+            for a, b in zip(chans[:-1], chans[1:]))
         for c in self.convs:
-            lecun_normal_(c, generator)
+            init_layer_(c, torch_init, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.convs[0](_to_channels_first(x))
@@ -67,13 +71,15 @@ class ResNet(nn.Module):
 class _ResBlock(nn.Module):
     """5^n conv + 1^n shortcut conv, then ReLU."""
 
-    def __init__(self, width: int, ndim: int, circular: bool, device, generator):
+    def __init__(self, width: int, ndim: int, circular: bool, dtype, torch_init, device,
+                 generator):
         super().__init__()
         mode = "circular" if circular else "zeros"
-        self.conv = _CONV[ndim](width, width, 5, padding=2, padding_mode=mode, device=device)
-        self.shortcut = _CONV[ndim](width, width, 1, device=device)
-        lecun_normal_(self.conv, generator)
-        lecun_normal_(self.shortcut, generator)
+        kw = dict(dtype=dtype, device=device)
+        self.conv = _CONV[ndim](width, width, 5, padding=2, padding_mode=mode, **kw)
+        self.shortcut = _CONV[ndim](width, width, 1, **kw)
+        init_layer_(self.conv, torch_init, generator)
+        init_layer_(self.shortcut, torch_init, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.relu(self.conv(x) + self.shortcut(x))
@@ -85,16 +91,19 @@ class _ResNetND(nn.Module):
     out_channels)."""
 
     def __init__(self, ndim: int, out_channels: int = 1, in_channels: int = 1, width: int = 100,
-                 depth: int = 9, circular: bool = False, device="cuda",
+                 depth: int = 9, circular: bool = False, dtype=torch.float32,
+                 torch_init: bool = False, device="cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        self.lift = nn.Linear(in_channels, width, device=device)
+        kw = dict(dtype=dtype, device=device)
+        self.lift = nn.Linear(in_channels, width, **kw)
         self.blocks = nn.ModuleList(
-            _ResBlock(width, ndim, circular, device, generator) for _ in range(depth))
-        self.head = nn.Linear(width, 128, device=device)
-        self.out = nn.Linear(128, out_channels, device=device)
+            _ResBlock(width, ndim, circular, dtype, torch_init, device, generator)
+            for _ in range(depth))
+        self.head = nn.Linear(width, 128, **kw)
+        self.out = nn.Linear(128, out_channels, **kw)
         for lin in (self.lift, self.head, self.out):
-            lecun_normal_(lin, generator)
+            init_layer_(lin, torch_init, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = _to_channels_first(self.lift(x))

@@ -160,7 +160,7 @@ def test_config_fields_match_jax():
     assert tf == jf
 
 
-PORT_MODULES = [
+PORT_MODULES = ["mech_nn_discovery_pde_torch"] + [
     "mech_nn_discovery_pde_torch." + m for m in (
         "config", "ops.multi_index", "ops.constraints", "ops.interp", "ops.stencil",
         "ops.structured", "ops.system", "ops.normal_stencil", "ops.fused_smoother",
@@ -168,7 +168,8 @@ PORT_MODULES = [
         "layers.multigrid", "models.paramnet", "data.generate", "data.datasets",
         "discovery.common", "discovery.ginzburg_landau", "solvers.cholesky", "layers.dense",
         "entry", "models.resnet", "discovery.burgers", "fit.sine_fit",
-        "examples.transport_dense", "examples.transport_multigrid",
+        "examples.transport_dense", "examples.transport_multigrid", "discovery.kamani",
+        "utils", "utils.logger", "utils.rundir", "utils.profiling", "utils.checkpoint",
     )
 ]
 FORBIDDEN = ("jax", "flax", "optax", "orbax", "mech_nn_discovery_pde_tpu")
