@@ -14,7 +14,8 @@ plain PyTorch version:
   2. kernels vs plain at the GL fine-level and level-1 shapes (bs 32):
      K1 f32/f64 and its epilogue (f64 and bf16 fields also in place), K2
      and its epilogue, 4-step smoothing
-     passes (x0 zero / nonzero) with the emitted residual; on the operators
+     passes as the solver composes them (MultigridSolver._smooth; x0 zero /
+     nonzero) with the emitted residual; on the operators
      of the bf16 storage modes (mg_precond_dtype) K3 (factored W) and its
      epilogue, the factored 4-step passes, K1 with bf16 stencil fields and
      K2 with a bf16 inverse; median time per launch over 20 launches (CUDA
@@ -41,7 +42,9 @@ plain PyTorch version:
      m 5, bw 40; levels 0 and 1), each timed beside its plain version, a
      library call and its bound;
   3. layer step at the production config "b30c4rm" (bs 32, (8, 32, 32),
-     n_grid 3): forward + IFT backward of sum(u0^2); step time over 5 runs
+     n_grid 3), first its hierarchy build and level-1 coarse rescale timed
+     with the rescale's products on ELL (as the solver runs them) and on
+     COO (median of 5 each); then forward + IFT backward of sum(u0^2); step time over 5 runs
      on perturbed inputs; FGMRES iterations and rel_rnorm (must be
      <= 3.1e-3); every gradient finite; a torch.profiler capture must show
      K1 and K2, and gives each port kernel's device time per step;
@@ -78,7 +81,26 @@ plain PyTorch version:
      again from that run directory for 2 epochs: it starts at epoch 1 from
      the checkpoint's parameters, Adam moments and scheduler step bit for
      bit, and its step moves the parameters;
- 14. one JSON line {"kernels": [...]} with each kernel's numbers and the
+ 14-17. the b30c4rm layer step (phase 3's inputs and FGMRES budget) under
+     each solver option beyond it, one warm-up and 3 timed forward + IFT
+     backward steps each (median, min, max, FGMRES iterations, forward
+     rel_rnorm, K1/K2 launches; every output and gradient finite):
+     the factored normal operator A^T (A x) (mg_normal_op='factored'; no
+     K1, K2 for the line blocks; forward rel_rnorm within 2x of phase 3's),
+     evolution rows (evolution=True, which falls back to it; K2), point
+     blocks (mg_block_smoother='point': K1, and K2 at nt 1, bw 7; then 16b:
+     K2 at the fine level's point blocks, bs 32 x 8192 blocks of 7 x 7,
+     against its plain version, timed beside its bound and one bmm) and
+     the Jacobi smoother (mg_smoother='jacobi': K1 and K2);
+ 18. (run after phase 2, on its hierarchy) the other Krylov solvers at the
+     fine level (bs 32, 57,344 unknowns, K1 f32 as AtA, b = A^T rhs): cg,
+     minres, gmres (restart 30), lgmres and cg_block for 60 iterations at
+     tol 0, cg_normal on the structured A and A^T: true residuals (K1)
+     finite and below ||b||, within 10 % of the reported one for gmres and
+     lgmres, cg_block's x within 1e-3 of cg's; ms per iteration;
+ 19. the native pair-table builder (g++, ops/native.py) loads, and its
+     tables for the GL fine system equal the NumPy twin's; both timed;
+ 20. one JSON line {"kernels": [...]} with each kernel's numbers and the
      launch counts of the run that drives it ("launches_in"); K1 and K1
      bf16 also carry their level-1 numbers ("*_level1") and K1 its f64
      ones ("f64_*"); K1 f64 is also an entry of its own, counted on the
@@ -86,7 +108,9 @@ plain PyTorch version:
      its GL-shape ones beside them ("gl_shapes"); K1 and K2 carry their
      transport-shape numbers ("transport") and their launches in phase 12
      ("launches_gl_nn_transform"); K2, K2 bf16 and K3 carry their wide-block
-     rows ("wide_blocks", each with its bmm times, "library_ms*"); then
+     rows ("wide_blocks", each with its bmm times, "library_ms*"), K2 its
+     point-block row ("point_blocks", phase 16b), and every kernel its
+     launches on the paths of phases 14-18 ("launches_new_paths"); then
      {"ok": true, "device": {...}} as the last line.  The script turns TF32
      off for matmuls and cuDNN, so every product and convolution here runs
      in full float32.
@@ -353,10 +377,10 @@ def phase_kernels(layer, hier, values, dev, seed):
 
         # ---- smoothing pass (4 steps), both starts, emitted residual
         ratio = mg.config.mg_chebyshev_ratio
-        sched = fs.chebyshev_schedule(lvl["lmax"], ratio, 4)
         x0 = 0.1 * torch.randn((bs, N * m), generator=g, device=dev)
         for x0_zero in (True, False):
-            xs_k, rs_k = fs.chebyshev_smooth(desc, nt, coef, binv, b, x0, sched, 4, x0_zero)
+            # the pass as the solver composes it (K1 and K2 through its closures)
+            xs_k, rs_k = mg._smooth(k, lvl, b, x0, 4, False, x0_zero, want_residual=True)
             xs_p, rs_p = fs.chebyshev_smooth_plain(desc, nt, coef, binv, b, x0, lvl["lmax"],
                                                    ratio, 4, x0_zero)
             check(f"smoothing pass x0_zero={x0_zero} (level {k})", rel_err(xs_k, xs_p), 1e-4)
@@ -386,10 +410,9 @@ def phase_kernels(layer, hier, values, dev, seed):
         fs.factored_block_apply(W, x, nt, d=d_k, c1=c1, c2=c2)
         fs.factored_block_apply_plain(W, x, nt, d=d_p, c1=c1, c2=c2)
         check(f"K3 Chebyshev epilogue (level {k})", rel_err(d_k, d_p), 1e-5)
-        sched_w = fs.chebyshev_schedule(lw["lmax"], ratio, 4)
         for x0_zero in (True, False):
-            xs_k, rs_k = fs.chebyshev_smooth(desc, nt, lw["coef"], W, b, x0, sched_w, 4,
-                                             x0_zero, factored=True)
+            xs_k, rs_k = stored["bf16_factored"]._smooth(k, lw, b, x0, 4, False, x0_zero,
+                                                         want_residual=True)
             xs_p, rs_p = fs.chebyshev_smooth_plain(desc, nt, lw["coef"], W, b, x0, lw["lmax"],
                                                    ratio, 4, x0_zero, factored=True)
             check(f"factored pass x0_zero={x0_zero} (level {k})", rel_err(xs_k, xs_p), 1e-4)
@@ -653,9 +676,8 @@ def phase_transport_kernels(dev, seed):
         fs.block_apply_plain(binv, x, nt, d=d_p, c1=c1, c2=c2)
         check(f"K2 Chebyshev epilogue (transport level {k})", rel_err(d_k, d_p), 1e-5)
         ratio = mg.config.mg_chebyshev_ratio
-        sched = fs.chebyshev_schedule(lvl["lmax"], ratio, 4)
         x0 = 0.1 * torch.randn((bs, N * m), generator=g, device=dev)
-        xs_k, rs_k = fs.chebyshev_smooth(desc, nt, coef, binv, b, x0, sched, 4, False)
+        xs_k, rs_k = mg._smooth(k, lvl, b, x0, 4, False, False, want_residual=True)
         xs_p, rs_p = fs.chebyshev_smooth_plain(desc, nt, coef, binv, b, x0, lvl["lmax"], ratio, 4,
                                                False)
         check(f"smoothing pass (transport level {k})",
@@ -744,9 +766,10 @@ def kernel_counts(prof):
 BLOCK_KERNEL = {"f32": "k2_line_block_apply", "bf16_factored": "k3_factored_line_block_apply"}
 
 
-def b30c4rm_layer(dev, precond="f32", bs=32, dims=(8, 32, 32), n_grid=3):
+def b30c4rm_layer(dev, precond="f32", bs=32, dims=(8, 32, 32), n_grid=3, evolution=False,
+                  **opts):
     """The production GL layer "b30c4rm" (bench.py:119-129) with the given
-    stored-preconditioner dtype."""
+    stored-preconditioner dtype, evolution rows and further solver options."""
     from mech_nn_discovery_pde_torch.config import PDEConfig
     from mech_nn_discovery_pde_torch.discovery.ginzburg_landau import GLDiscovery
     from mech_nn_discovery_pde_torch.layers.multigrid import MultigridLayer
@@ -756,17 +779,18 @@ def b30c4rm_layer(dev, precond="f32", bs=32, dims=(8, 32, 32), n_grid=3):
         mg_smoother_steps_pre=4, mg_smoother_steps_post=4,
         mg_fgmres_max_iter_forward=30, mg_fgmres_max_iter_backward=30,
         mg_smoother_residual=True, mg_fused_matvec=True, return_solve_stats=True,
-        mg_precond_dtype=precond,
+        mg_precond_dtype=precond, **opts,
     )
     return MultigridLayer(bs=bs, coord_dims=dims, order=2, n_ind_dim=1, n_iv=1,
                           init_index_mi_list=GLDiscovery.IV_LIST, solver_dbl=True,
-                          n_grid=n_grid, downsample_first=False, config=cfg, device=dev)
+                          n_grid=n_grid, downsample_first=False, evolution=evolution,
+                          config=cfg, device=dev)
 
 
 def phase_layer(seed, dev, precond="f32", bs=32, dims=(8, 32, 32)):
     """Phases 3 and 4: the b30c4rm layer step (b30c4rmw with
     precond='bf16_factored'), forward + IFT backward.  Returns the launch
-    counts of one step."""
+    counts of one step and its forward rel_rnorm max."""
     from mech_nn_discovery_pde_torch.ops import _cuda
 
     t0 = time.perf_counter()
@@ -836,7 +860,284 @@ def phase_layer(seed, dev, precond="f32", bs=32, dims=(8, 32, 32)):
             raise AssertionError(f"profiler shows no launch of {n} in the layer step")
         if not want and c != 0:
             raise AssertionError(f"profiler shows {c} launches of {n} in the {precond} layer step")
+    return counts, float(rel.max())
+
+
+# the solver options of the JAX package beyond b30c4rm, each a layer step at
+# its full width: (name, evolution, config options)
+OPTION_PHASES = (
+    ("factored", False, dict(mg_normal_op="factored")),
+    ("evolution", True, {}),
+    ("point", False, dict(mg_block_smoother="point")),
+    ("jacobi", False, dict(mg_smoother="jacobi")),
+)
+
+
+def phase_option(seed, dev, name, evolution, opts, stencil_rel, bs=32, dims=(8, 32, 32)):
+    """Phases 14-17: the b30c4rm layer step (phase 3's inputs and budget)
+    under one more solver option: the factored normal operator A^T (A x)
+    (no K1 launch; K2 for the line blocks), evolution rows (which fall back
+    to it), point blocks (K1, and K2 at nt 1, bw 7) or the Jacobi smoother
+    (K1, K2).  One warm-up, then 3 timed forward + IFT backward steps of
+    sum(u0^2) with the launch counts cleared just before and read just
+    after.  Fails on a non-finite output or gradient, or a block kernel
+    other than K2; the factored step's forward rel_rnorm must be within 2x
+    of phase 3's (the same AtA), and one factored V-cycle is profiled
+    (`profile_v_cycle`).  Returns (launch counts of the 3 steps, the
+    layer), the layer for phase 16b."""
+    from mech_nn_discovery_pde_torch.ops import _cuda
+
+    t0 = time.perf_counter()
+    layer = b30c4rm_layer(dev, "f32", bs, dims, evolution=evolution, **opts)
+    (c0, r0, i0), steps = bench_inputs(layer, bs, dims, seed, dev)
+    log(f"{name} layer built in {time.perf_counter() - t0:.2f} s (normal operator "
+        f"{layer.mg_solver.config.mg_normal_op!r}, smoother {layer.config.mg_smoother!r}, "
+        f"blocks {layer.config.mg_block_smoother!r})")
+
+    def step(c):
+        c = c.clone().requires_grad_(True)
+        r = r0.clone().requires_grad_(True)
+        i = i0.clone().requires_grad_(True)
+        u0, _, stats = layer(c, r, i, steps)
+        (u0**2).sum().backward()
+        for what, t in (("u0", u0), ("coeffs grad", c.grad), ("rhs grad", r.grad),
+                        ("iv grad", i.grad)):
+            if not bool(torch.isfinite(t).all()):
+                raise AssertionError(f"{name} layer step: non-finite {what}")
+        return stats
+
+    t0 = time.perf_counter()
+    step(c0)
+    torch.cuda.synchronize()
+    log(f"{name} warm-up step {time.perf_counter() - t0:.3f} s")
+    torch.cuda.synchronize()
+    _cuda.LAUNCHES.clear()
+    ts, its, rels = [], set(), []
+    for k in range(3):
+        t0 = time.perf_counter()
+        stats = step(c0 + 1e-6 * (k + 1))
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t0)
+        its.update(stats["iters"].tolist())
+        rels.append(float(stats["rel_rnorm"].max()))
+    counts = dict(_cuda.LAUNCHES)
+    k1 = sum(c for n, c in counts.items() if n.startswith("k1_"))
+    k2 = counts.get("k2_line_block_apply", 0)
+    log(f"{name} layer step: median {statistics.median(ts):.4f} s (min {min(ts):.4f}, max "
+        f"{max(ts):.4f}) over 3; forward FGMRES iters {sorted(its)}, rel_rnorm max "
+        f"{max(rels):.4e}; launches in the 3 steps {counts} (K1 {k1}, K2 {k2})")
+    stray = [n for n in counts if n.startswith(("k2_", "k3_")) and n != "k2_line_block_apply"]
+    if k2 == 0 or stray:
+        raise AssertionError(f"{name} layer step: block applies {counts}, want K2 only")
+    if name in ("factored", "evolution") and k1:
+        raise AssertionError(f"{name} layer step launched K1 {k1} times (the factored operator "
+                             "has no stencil fields)")
+    if name in ("point", "jacobi") and not k1:
+        raise AssertionError(f"{name} layer step launched no K1")
+    if name == "factored" and not max(rels) <= 2 * stencil_rel:
+        raise AssertionError(f"factored forward rel_rnorm {max(rels):.3e} above 2x the stencil "
+                             f"operator's {stencil_rel:.3e} (the same AtA)")
+    if name == "factored":
+        profile_v_cycle(layer, c0, r0, i0, steps)
+    return counts, layer
+
+
+def time_hierarchy_build(layer, c0, r0, i0, steps, n=5):
+    """The hierarchy build (`layer._prepare`) and its level-1 coarse rescale
+    timed with the rescale's products as the solver runs them (ELL, each
+    value vector packed once) and with COO products in their place (gather +
+    index_add), interleaved in one process: median ms of n each."""
+    from mech_nn_discovery_pde_torch.ops.system import PDESystem
+
+    mg = layer.mg_solver
+    ell = (PDESystem.pack_values, PDESystem.matvec_packed)
+    coo = (lambda self, values, adjoint=True: values, PDESystem.matvec_coo)
+    ts = {(w, k): [] for w in ("prepare", "rescale") for k in ("ell", "coo")}
+    with torch.no_grad():
+        for _ in range(n + 1):
+            for kind, (pack, mv) in (("ell", ell), ("coo", coo)):
+                PDESystem.pack_values, PDESystem.matvec_packed = pack, mv
+                try:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    _, _, hier = layer._prepare(c0, r0, i0, steps)
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    lv = hier["levels"]
+                    mg._rescale_coarse_values(1, lv[0]["values"], lv[1]["values"])
+                    torch.cuda.synchronize()
+                    t2 = time.perf_counter()
+                finally:
+                    PDESystem.pack_values, PDESystem.matvec_packed = ell
+                del hier
+                ts[("prepare", kind)].append(t1 - t0)
+                ts[("rescale", kind)].append(t2 - t1)
+    med = {key: statistics.median(v[1:]) * 1e3 for key, v in ts.items()}
+    log(f"hierarchy build: {med[('prepare', 'ell')]} ms with the rescale on ELL, "
+        f"{med[('prepare', 'coo')]} ms on COO; the level-1 rescale alone "
+        f"{med[('rescale', 'ell')]} ms on ELL, {med[('rescale', 'coo')]} ms on COO "
+        f"(median of {n})")
+
+
+def profile_v_cycle(layer, c0, r0, i0, steps):
+    """Where a factored step's time goes, on the unit that makes most of it:
+    one preconditioner application (a V-cycle; about 60 a step) on the
+    layer's hierarchy, its median host time over 5 and one profiled run:
+    device busy time, idle share, kernels by time.  (A whole profiled step
+    holds about 230,000 activities, whose trace takes minutes to read.)"""
+    from torch.profiler import ProfilerActivity, profile
+
+    mg = layer.mg_solver
+    with torch.no_grad():
+        values, rhs_vec, hier = layer._prepare(c0, r0, i0, steps)
+        r = layer.system.rmatvec_s(values, rhs_vec).float().contiguous()
+        ts = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mg.precondition(hier, r)
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        dt = statistics.median(ts[1:])
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            mg.precondition(hier, r)
+            torch.cuda.synchronize()
+    _, busy_us, by_name = kernel_counts(prof)
+    log(f"profiler: factored V-cycle {dt * 1e3:.2f} ms (median of 5), device busy "
+        f"{busy_us / 1e3:.2f} ms in {sum(c for _, c in by_name.values())} activities, idle "
+        f"share {max(0.0, 1 - busy_us / 1e6 / dt):.3f}")
+    for kname, (us, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]:
+        log(f"  {us / 1e3:10.3f} ms  x{c:6d}  {kname[:90]}")
+
+
+def phase_point_k2(seed, layer, dev):
+    """Phase 16b: K2 at the point blocks of the point layer's fine level
+    (bs 32, S 8192 blocks of nt 1, bw 7) against block_apply_plain, with the
+    Chebyshev epilogue (1e-5); timed alone and back to back beside its bound
+    and one torch.bmm.  Returns the kernels-line row."""
+    from mech_nn_discovery_pde_torch.ops import _cuda
+    from mech_nn_discovery_pde_torch.ops import fused_smoother as fs
+
+    bs, dims = layer.bs, layer.coord_dims
+    (c0, r0, i0), steps = bench_inputs(layer, bs, dims, seed, dev)
+    with torch.no_grad():
+        _, _, hier = layer._prepare(c0, r0, i0, steps)
+    binv = hier["levels"][0]["binv"]
+    del hier
+    _, S, bw, _ = binv.shape
+    if (bw, layer.mg_solver._block_nt(0)) != (layer.n_orders, 1):
+        raise AssertionError(f"point layer: blocks of width {bw}, want nt 1, bw n_mi")
+    g = torch.Generator(device=dev).manual_seed(seed + 5)
+    x = torch.randn((bs, S * bw), generator=g, device=dev)
+    b = torch.randn((bs, S * bw), generator=g, device=dev)
+    c1 = torch.rand((bs,), generator=g, device=dev)
+    c2 = torch.rand((bs,), generator=g, device=dev)
+    geo = fs.line_block_geometry(bs, S, bw, 4, _cuda.sm_count(dev))
+    log(f"  K2 point blocks (bs {bs}, S {S}, bw {bw}, nt 1): {geo}")
+    t_k, t_p = fs.block_apply(binv, x, 1), fs.block_apply_plain(binv, x, 1)
+    check("K2 point blocks apply", rel_err(t_k, t_p), 1e-5)
+    d_k, d_p = b.clone(), b.clone()
+    fs.block_apply(binv, x, 1, d=d_k, c1=c1, c2=c2)
+    fs.block_apply_plain(binv, x, 1, d=d_p, c1=c1, c2=c2)
+    check("K2 point blocks Chebyshev epilogue", rel_err(d_k, d_p), 1e-5)
+    lib, to_vec = block_library_call(binv, x, 1, bw, False)
+    check("K2 point blocks bmm yardstick", rel_err(to_vec(lib()), t_k), 1e-5)
+    bnd, by = bound(binv.numel() * 4 + 4 * 2 * x.numel(), 2 * binv.numel())
+    row = dict(bw=bw, nt=1, S=S, max_abs_err=abs_err(t_k, t_p),
+               ms=time_ms(lambda: fs.block_apply(binv, x, 1, d=d_k)),
+               ms_back_to_back=time_ms_back_to_back(lambda: fs.block_apply(binv, x, 1, d=d_k)),
+               plain_ms=time_ms(lambda: fs.block_apply_plain(binv, x, 1)),
+               bound_ms=bnd, bound_by=by, library_ms=time_ms(lib),
+               library_ms_back_to_back=time_ms_back_to_back(lib))
+    log(f"  K2 point blocks: {row['ms']:.4f} ms, back to back {row['ms_back_to_back']:.4f} ms "
+        f"(bound {bnd:.4f}, {by}; plain {row['plain_ms']:.4f}; bmm {row['library_ms']:.4f}, "
+        f"back to back {row['library_ms_back_to_back']:.4f})")
+    return row
+
+
+def phase_krylov(layer, hier, values, rhs_vec, dev, iters=60):
+    """Phase 18: the other Krylov solvers at the fine level of phase 3's
+    hierarchy (bs 32, 57,344 unknowns) with K1 f32 as AtA, b = A^T rhs:
+    cg, minres, gmres (restart 30), lgmres (restart 20) and cg_block for a
+    fixed 60 iterations (tol 0), and cg_normal on the structured A and A^T.
+    Each: the true residual ||b - AtA x|| (K1) finite and below ||b||, and
+    within 10 % of the reported one where the solver reports a true
+    residual (gmres, lgmres); cg_block's x within 1e-3 of cg's.  Prints ms
+    per iteration.  Returns the launch counts of the solves."""
+    from mech_nn_discovery_pde_torch.ops import _cuda
+    from mech_nn_discovery_pde_torch.ops.normal_stencil import stencil_apply
+    from mech_nn_discovery_pde_torch.solvers import krylov
+
+    mg, sys0 = layer.mg_solver, layer.system
+    desc, coef = mg.descs[0], hier["levels"][0]["coef"]
+    v32 = values.float()
+    A = lambda v: stencil_apply(desc, coef, v)  # noqa: E731
+    b = sys0.rmatvec_s(v32, rhs_vec.float()).contiguous()
+    bn = torch.linalg.vector_norm(b, dim=1)
+    kw = dict(maxiter=iters, tol=0.0)
+    solvers = {
+        "cg": lambda: krylov.cg(A, b, **kw),
+        "minres": lambda: krylov.minres(A, b, **kw),
+        "gmres": lambda: krylov.gmres(A, b, restart=30, atol=0.0, **kw),
+        "lgmres": lambda: krylov.lgmres(A, b, restart=20, atol=0.0, **kw),
+        "cg_block": lambda: krylov.cg_block(A, b, **kw),
+        "cg_normal": lambda: krylov.cg_normal(lambda x: sys0.matvec_s(v32, x),
+                                              lambda y: sys0.rmatvec_s(v32, y), b, **kw),
+    }
+    torch.cuda.synchronize()
+    _cuda.LAUNCHES.clear()
+    xs = {}
+    for name, solve in solvers.items():
+        t0 = time.perf_counter()
+        res = solve()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        x, rep_rn = (res[0], res[1]) if name == "cg_block" else (res.x, res.rnorm)
+        xs[name] = x
+        true_rn = torch.linalg.vector_norm(b - A(x), dim=1)
+        ratio = true_rn / bn
+        log(f"  {name}: {dt / iters * 1e3:.3f} ms per iteration; true rel residual max "
+            f"{float(ratio.max()):.4e} mean {float(ratio.mean()):.4e}; reported/true max "
+            f"{float((rep_rn / true_rn).max()):.4f} min {float((rep_rn / true_rn).min()):.4f}")
+        if not (bool(torch.isfinite(true_rn).all()) and bool((true_rn < bn).all())):
+            raise AssertionError(f"krylov {name}: true residual not finite or not below ||b||")
+        if name in ("gmres", "lgmres") and not float((rep_rn / true_rn - 1).abs().max()) <= 0.1:
+            raise AssertionError(f"krylov {name}: reported residual not within 10 % of the true one")
+    counts = dict(_cuda.LAUNCHES)
+    check("cg_block vs cg x", rel_err(xs["cg_block"], xs["cg"]), 1e-3)
+    log(f"krylov launches {counts}")
+    if counts.get("k1_stencil_apply", 0) == 0:
+        raise AssertionError("krylov solvers launched no K1")
     return counts
+
+
+def phase_native(dev):
+    """Phase 19: the native pair-table builder (ops/native.py, built with
+    g++ into _build/) must load; the GL fine system's tables equal its NumPy
+    twin's exactly.  Prints both times (host)."""
+    import numpy as np
+
+    from mech_nn_discovery_pde_torch.discovery.ginzburg_landau import GLDiscovery
+    from mech_nn_discovery_pde_torch.ops import native
+    from mech_nn_discovery_pde_torch.ops.system import PDESystem
+
+    t0 = time.perf_counter()
+    ok = native.available()
+    log(f"native library: available {ok} ({time.perf_counter() - t0:.2f} s to build and load)")
+    if not ok:
+        raise AssertionError(f"native library did not load: {native.error()}")
+    sys0 = PDESystem.build((8, 32, 32), order=2, init_index_mi_list=GLDiscovery.IV_LIST,
+                           step_size=0.01)
+    t0 = time.perf_counter()
+    got = native.build_pairs_sorted(sys0.rows_all, sys0.cols_all, sys0.num_vars)
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = native.pairs_sorted_numpy(sys0.rows_all, sys0.cols_all, sys0.num_vars)
+    t_numpy = time.perf_counter() - t0
+    if not all(np.array_equal(a, w) for a, w in zip(got, want)):
+        raise AssertionError("native pair tables differ from NumPy's")
+    log(f"native pair tables (GL fine level, {len(got[0])} pairs) equal NumPy's: native "
+        f"{t_native:.3f} s, NumPy {t_numpy:.3f} s")
 
 
 def phase_bf16_forward(seed, dev, bs=32, dims=(8, 32, 32)):
@@ -1457,11 +1758,15 @@ def main() -> int:
                            n_grid=3, downsample_first=False, config=cfg, device=dev)
     (c0, r0, i0), steps = bench_inputs(layer, bs, dims, args.seed, dev)
     t0 = time.perf_counter()
-    values, _, hier = layer._prepare(c0, r0, i0, steps)
+    values, rhs_vec, hier = layer._prepare(c0, r0, i0, steps)
     torch.cuda.synchronize()
     log(f"hierarchy built in {time.perf_counter() - t0:.2f} s; lmax level 0 "
         f"{float(hier['levels'][0]['lmax'].min()):.4f}..{float(hier['levels'][0]['lmax'].max()):.4f}")
+    time_hierarchy_build(layer, c0, r0, i0, steps)
     report = phase_kernels(layer, hier, values.detach(), dev, args.seed)
+    with torch.no_grad():
+        counts_kry = phase_krylov(layer, hier, values.detach(), rhs_vec, dev)
+    del rhs_vec
     phase_odd_shape(dev, args.seed)
     wide = phase_wide_blocks(dev, args.seed)
     phase_k1_layouts(dev, args.seed)
@@ -1474,8 +1779,8 @@ def main() -> int:
     report["k1"]["transport"], report["k2"]["transport"] = tk["k1"], tk["k2"]
     torch.cuda.empty_cache()
 
-    phase_layer(args.seed, dev)
-    counts_w = phase_layer(args.seed, dev, precond="bf16_factored")
+    _, stencil_rel = phase_layer(args.seed, dev)
+    counts_w, _ = phase_layer(args.seed, dev, precond="bf16_factored")
     torch.cuda.empty_cache()
     counts_b = phase_bf16_forward(args.seed, dev)
     torch.cuda.empty_cache()
@@ -1493,6 +1798,19 @@ def main() -> int:
     counts_nt = phase_gl_transform(dev)
     torch.cuda.empty_cache()
     phase_resume(dev)
+    torch.cuda.empty_cache()
+
+    t_new = time.perf_counter()
+    new_counts = {"krylov": counts_kry}
+    for name, evolution, opts in OPTION_PHASES:
+        new_counts[name], opt_layer = phase_option(args.seed, dev, name, evolution, opts,
+                                                   stencil_rel)
+        if name == "point":
+            report["k2"]["point_blocks"] = phase_point_k2(args.seed, opt_layer, dev)
+        del opt_layer
+        torch.cuda.empty_cache()
+    phase_native(dev)
+    log(f"phases 14-19 took {time.perf_counter() - t_new:.1f} s")
 
     stencil = "mech_nn_discovery_pde_torch/csrc/stencil_apply.cu"
     line = "mech_nn_discovery_pde_torch/csrc/line_block.cu"
@@ -1517,9 +1835,12 @@ def main() -> int:
                     launches_in=path, **report[key],
                     **({"wide_blocks": wide_rows[key]} if key in wide_rows else {}))
                for n, src, rep, path, c, key in kernels]
-    # K1 and K2 also carry their launches on the GL nn_transform path (phase 12)
+    # K1 and K2 also carry their launches on the GL nn_transform path (phase 12),
+    # and every kernel its launches on the paths of phases 14-18
     for kd in kernels[0], kernels[2]:
         kd["launches_gl_nn_transform"] = counts_nt.get(kd["name"], 0)
+    for kd in kernels:
+        kd["launches_new_paths"] = {p: c.get(kd["name"], 0) for p, c in new_counts.items()}
     for kd in kernels:
         if kd["launches"] == 0:
             raise AssertionError(f"{kd['name']} was not launched in the {kd['launches_in']}")

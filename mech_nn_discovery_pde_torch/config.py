@@ -51,11 +51,12 @@ class PDEConfig:
 
     # normal-operator application: 'stencil' / 'stencil_pallas' (assembled
     # block stencil, kernel K1 on CUDA) or 'factored' (A^T (A x) through the
-    # structured operators; not ported yet)
+    # structured operators; evolution systems always take it)
     mg_normal_op: str = "stencil"
 
     # smoother: 'chebyshev' / 'chebyshev_fused' (the same kernel-driven
-    # Chebyshev pass in the port) or 'jacobi' (not ported yet)
+    # Chebyshev pass in the port) or 'jacobi' (weighted block Jacobi:
+    # jacobi_w on the backward solve, jacobi_w_forward on the forward)
     mg_smoother: str = "chebyshev"
     # reuse the Chebyshev recurrence's residual invariant r = b - A x as the
     # V-cycle's restriction input (one fewer apply per level per V-cycle)
@@ -67,8 +68,8 @@ class PDEConfig:
     # safety factor on the power-iteration lmax estimate.  LOAD-BEARING:
     # Chebyshev amplifies modes above the assumed lmax explosively
     mg_lmax_margin: float = 1.3
-    # smoother block structure: 'line' (time-line blocks) or 'point' (not
-    # ported yet)
+    # smoother block structure: 'line' (time-line blocks) or 'point' (the
+    # n_mi x n_mi block of each grid point)
     mg_block_smoother: str = "line"
     # dtype of the STORED preconditioner operators: 'f32', 'bf16' or
     # 'bf16_factored'.  Assembly, factorization, V-cycle vectors and the

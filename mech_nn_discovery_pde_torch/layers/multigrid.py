@@ -7,7 +7,11 @@ grids, and the third output carries the forward-solve stats when
 `config.return_solve_stats` (None otherwise).
 
 The layer lives on one device (`device`, default "cuda"); inputs are moved
-there and cast to the solver dtype.
+there and cast to the solver dtype.  It takes every solver option of the
+JAX package's layer on one device (evolution systems, the factored normal
+operator, the Jacobi and point-block smoothers; solvers/multigrid.py);
+`mesh` (the sp-sharded solve over several devices) raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ class MultigridLayer:
         alpha: float = 0.1,
         config: Optional[PDEConfig] = None,
         device="cuda",
+        mesh=None,
     ):
         del n_iv_steps, gamma, alpha, double_ret
         self.bs = bs
@@ -60,7 +65,7 @@ class MultigridLayer:
             init_index_mi_list=init_index_mi_list or [], coord_dims=self.coord_dims,
             solver_dbl=solver_dbl, evolution=evolution,
             downsample_first=downsample_first, n_grid=n_grid, config=self.config,
-            device=self.device,
+            device=self.device, mesh=mesh,
         )
         self.system = self.mg_solver.systems[0]
         self.n_orders = self.system.var_set.n_mi
@@ -124,6 +129,6 @@ class MultigridLayer:
         absolute/relative residual norms.  Not differentiable."""
         values, rhs_vec, hier = self._prepare(coeffs, rhs, iv_rhs, steps_list)
         _, iters, rnorm = self.mg_solver.solve_normal(values, rhs_vec, hier)
-        bnorm = torch.linalg.vector_norm(self.system.rmatvec(values, rhs_vec), dim=1)
+        bnorm = torch.linalg.vector_norm(self.system.rmatvec_coo(values, rhs_vec), dim=1)
         return {"iters": iters, "rnorm": rnorm,
                 "rel_rnorm": rnorm / torch.clamp(bnorm, min=1e-30)}

@@ -27,7 +27,15 @@ branch and `_fused_chebyshev_kernel`): Chebyshev over [lmax/ratio, lmax],
 `x0_zero` starts from x = 0 without an apply, and the final residual
 r = b - A x is the recurrence's own invariant, returned at no extra cost.
 The per-step scalars c1, c2 depend only on lmax, so `chebyshev_schedule`
-computes them once per hierarchy level.
+computes them once per hierarchy level.  `chebyshev_smooth_op` runs the
+pass on any normal operator with K1's epilogue contract (the solver's
+factored A^T (A x) on levels without stencil fields), and `jacobi_smooth`
+the JAX package's weighted block-Jacobi branch (`_smooth`, mg_smoother=
+'jacobi'): x <- x + w B^-1 (b - A x), the update in K2's epilogue.
+
+Point blocks (mg_block_smoother='point': the n_mi x n_mi diagonal block of
+each grid point) are time lines of length 1 in this layout: the same
+kernels apply them with nt = 1, bw = n_mi.
 
 Vectors are the flat point-major (bs, N*m) solver layout, float32; the
 block inverse (or W) is (bs, S, bw, bw) row-major with block row
@@ -383,6 +391,32 @@ def chebyshev_smooth_plain(desc, nt, coef, binv, b, x, lmax, ratio: float, steps
     return x, r
 
 
+def chebyshev_smooth_op(apply, block, b, x, sched, steps: int, x0_zero: bool = False):
+    """`steps` Chebyshev iterations on B^-1 A from x (ignored when x0_zero):
+    returns (x, r) with r = b - A x maintained by the recurrence.
+
+    apply(v, rin=, out=, xin=, xout=) is A v with K1's epilogue
+    (`stencil_apply`); block(r, d=, c1=, c2=) is B^-1 r with K2's
+    (`block_apply`).  sched is `chebyshev_schedule(lmax, ratio, >= steps)`.
+    Neither b nor x is written."""
+    if x0_zero:
+        r, xcur = b, None
+    else:
+        r, xcur = apply(x, rin=b), x
+    if steps == 0:
+        return (torch.zeros_like(b) if xcur is None else xcur), r
+    d = block(r, c2=sched[0, 1])
+    xnew = torch.empty_like(b)
+    rnew = torch.empty_like(b) if r is b else r
+    for i in range(steps):
+        # x <- x + d and r <- r - A d in one K1 launch
+        apply(d, rin=r, out=rnew, xin=xcur, xout=xnew)
+        r, xcur = rnew, xnew
+        if i + 1 < steps:  # the last direction would go unused
+            block(r, d=d, c1=sched[i + 1, 0], c2=sched[i + 1, 1])
+    return xcur, r
+
+
 def chebyshev_smooth(
     desc: NormalStencilDesc,
     nt: int,
@@ -395,26 +429,33 @@ def chebyshev_smooth(
     x0_zero: bool = False,
     factored: bool = False,
 ):
-    """`steps` Chebyshev iterations on B^-1 AtA from x (ignored when
-    x0_zero): returns (x, r) with r = b - A x maintained by the recurrence.
+    """`chebyshev_smooth_op` on the assembled stencil (`stencil_apply`, K1)
+    and the blocks binv, B^-1 (`block_apply`, K2) or with `factored` the
+    factor W (`factored_block_apply`, K3).  The kernel tests' entry point,
+    for operands given directly; the solver composes `chebyshev_smooth_op`
+    with its own level closures (`MultigridSolver._smooth`)."""
+    blk = factored_block_apply if factored else block_apply
+    return chebyshev_smooth_op(
+        lambda v, **ep: stencil_apply(desc, coef, v, **ep),
+        lambda r, **ep: blk(binv, r, nt, **ep), b, x, sched, steps, x0_zero)
 
-    binv holds B^-1 (`block_apply`), or with `factored` the factor W
-    (`factored_block_apply`).  sched is `chebyshev_schedule(lmax, ratio,
-    >= steps)`.  Neither b nor x is written."""
-    block = factored_block_apply if factored else block_apply
-    if x0_zero:
-        r, xcur = b, None
-    else:
-        r, xcur = stencil_apply(desc, coef, x, rin=b), x
-    if steps == 0:
-        return (torch.zeros_like(b) if xcur is None else xcur), r
-    d = block(binv, r, nt, c2=sched[0, 1])
-    xnew = torch.empty_like(b)
-    rnew = torch.empty_like(b) if r is b else r
-    for i in range(steps):
-        # x <- x + d and r <- r - A d in one K1 launch
-        stencil_apply(desc, coef, d, rin=r, out=rnew, xin=xcur, xout=xnew)
-        r, xcur = rnew, xnew
-        if i + 1 < steps:  # the last direction would go unused
-            block(binv, r, nt, d=d, c1=sched[i + 1, 0], c2=sched[i + 1, 1])
-    return xcur, r
+
+def jacobi_smooth(apply, block, b, x, steps: int, w: float, x0_zero: bool = False,
+                  want_residual: bool = False):
+    """`steps` weighted block-Jacobi iterations r = b - A x, x <- x + w B^-1 r
+    from x (ignored when x0_zero; A 0 = 0 takes no apply); `apply` and
+    `block` as in `chebyshev_smooth_op`.  Returns x, and with
+    want_residual also b - A x, recomputed.  Neither b nor x is written."""
+    wv = torch.full((b.shape[0],), w, dtype=b.dtype, device=b.device)
+    one = torch.ones_like(wv)
+    x = None if x0_zero else x.clone()
+    for _ in range(steps):
+        if x is None:
+            x = block(b, c2=wv)
+        else:
+            block(apply(x, rin=b), d=x, c1=one, c2=wv)
+    if x is None:
+        x = torch.zeros_like(b)
+    if want_residual:
+        return x, apply(x, rin=b)
+    return x

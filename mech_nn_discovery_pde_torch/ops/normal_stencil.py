@@ -248,7 +248,9 @@ def _gather_tables(desc: NormalStencilDesc, device) -> Tuple[torch.Tensor, ...]:
     return t
 
 
-def _epilogue(y, rin, out, x, xin, xout):
+def stencil_epilogue(y, rin=None, out=None, x=None, xin=None, xout=None):
+    """K1's epilogue on y = (AtA) x (see `stencil_apply`); any normal
+    operator written in PyTorch takes it to serve the same callers."""
     val = y if rin is None else rin - y
     if xout is not None:
         xout.copy_(x if xin is None else xin + x)
@@ -290,7 +292,7 @@ def stencil_apply_plain(
     Y.index_add_(1, ci, G * take(Xz, x_fwd))
     Y.index_add_(1, cj, take(Gz, g_bwd) * take(Xz, x_bwd))
     y = Y.transpose(1, 2).reshape(bs, -1)
-    return _epilogue(y, rin, out, x, xin, xout)
+    return stencil_epilogue(y, rin, out, x, xin, xout)
 
 
 # (n_coord, order) pairs K1 is instantiated for: every pair VariableSet takes

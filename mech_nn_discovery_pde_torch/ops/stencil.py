@@ -173,3 +173,14 @@ def crop_rhs(spec: ConstraintSpec, rhs: torch.Tensor) -> torch.Tensor:
     bs = rhs.shape[0]
     x = rhs.reshape((bs,) + tuple(dims))
     return x[_interior(len(dims))].reshape(bs, -1)
+
+
+def pad_rhs(spec: ConstraintSpec, vals: torch.Tensor) -> torch.Tensor:
+    """Inverse of crop_rhs: interior-row values (bs, n_eq_rows) into a zero
+    full grid (bs, grid)."""
+    dims = tuple(spec.coord_dims)
+    bs = vals.shape[0]
+    x = vals.reshape((bs, dims[0] - 1) + tuple(d - 2 for d in dims[1:]))
+    # F.pad lists (before, after) from the last axis back
+    pads = (1, 1) * (len(dims) - 1) + (1, 0)
+    return torch.nn.functional.pad(x, pads).reshape(bs, -1)

@@ -7,9 +7,19 @@ over a leading sample axis throughout:
   steps) is downsampled (align-corners linear) and the constraint values
   re-filled on each level, then rescaled per constraint block against the
   finer operator on smooth probes;
-- smoothing: Chebyshev on the time-line block-Jacobi preconditioned normal
-  operator, one host loop of kernels K1 + K2 per step on CUDA
-  (ops/fused_smoother.py), on every non-coarsest level;
+- the normal operator AtA (config.mg_normal_op): the assembled block
+  stencil ('stencil', kernel K1 on CUDA), or 'factored': A^T (A x) through
+  the structured operators (ops/structured.py) on the level's values.
+  Evolution systems (equation rows that read the previous time step) fall
+  back to 'factored', as in the JAX package: the assembled stencil assumes
+  same-point equation entries;
+- smoothing (config.mg_smoother), on every non-coarsest level: Chebyshev
+  on the block-Jacobi preconditioned normal operator, or weighted block
+  Jacobi (jacobi_w on the backward solve, jacobi_w_forward on the forward);
+  blocks (config.mg_block_smoother) are time lines ('line') or grid points
+  ('point'), B^-1 applied by kernel K2 (K3 under 'bf16_factored') with the
+  vector updates in the kernels' epilogues (ops/fused_smoother.py; a point
+  block is a time line of length 1 there);
 - coarsest level: dense assembled AtA, equilibrated, explicit Cholesky
   inverse built in 512-column chunks;
 - the preconditioner runs in float32; the outer flexible GMRES iterates in
@@ -23,12 +33,13 @@ over a leading sample axis throughout:
 The hierarchy carries no gradient (it only affects convergence); gradients
 flow through the IFT backward in ops/normal_solve.py.
 
-Not ported yet (they raise): evolution systems and the factored normal
-operator, the Jacobi and point-block smoothers, and the sp-sharded solve.
+Not ported (it raises NotImplementedError): the sp-sharded solve (`mesh`),
+which needs the JAX package's parallel/ on several cards.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -38,15 +49,18 @@ from mech_nn_discovery_pde_torch.config import PDEConfig, default_config
 from mech_nn_discovery_pde_torch.ops.fused_smoother import (
     block_apply,
     chebyshev_schedule,
-    chebyshev_smooth,
+    chebyshev_smooth_op,
     factored_block_apply,
+    jacobi_smooth,
 )
 from mech_nn_discovery_pde_torch.ops.interp import apply_separable, interp_matrix
 from mech_nn_discovery_pde_torch.ops.normal_stencil import (
     build_normal_coef,
     make_desc,
     stencil_apply,
+    stencil_epilogue,
 )
+from mech_nn_discovery_pde_torch.ops.structured import matvec_structured, rmatvec_structured
 from mech_nn_discovery_pde_torch.ops.system import PDESystem
 from mech_nn_discovery_pde_torch.solvers import krylov
 
@@ -81,6 +95,7 @@ class MultigridSolver:
         n_grid: int = 2,
         config: Optional[PDEConfig] = None,
         device="cuda",
+        mesh=None,
     ):
         del n_iv_steps, gamma, alpha, double_ret
         self.bs = bs
@@ -106,15 +121,38 @@ class MultigridSolver:
         self.vdtype = torch.bfloat16 if mpd == "bf16" else torch.float32
         self._factored_binv = mpd == "bf16_factored"
         self.binv_dtype = torch.bfloat16 if mpd in ("bf16", "bf16_factored") else torch.float32
-        unsupported = {
-            "evolution": evolution,
-            f"mg_normal_op={cfg.mg_normal_op!r}": cfg.mg_normal_op not in ("stencil", "stencil_pallas"),
-            f"mg_smoother={cfg.mg_smoother!r}": cfg.mg_smoother not in ("chebyshev", "chebyshev_fused"),
-            f"mg_block_smoother={cfg.mg_block_smoother!r}": cfg.mg_block_smoother != "line",
-        }
-        bad = [k for k, v in unsupported.items() if v]
-        if bad:
-            raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
+        if cfg.mg_normal_op not in ("stencil", "stencil_pallas", "factored"):
+            raise ValueError(f"unknown mg_normal_op {cfg.mg_normal_op!r}; expected "
+                             "'stencil', 'stencil_pallas' or 'factored'")
+        if cfg.mg_smoother not in ("chebyshev", "chebyshev_fused", "jacobi"):
+            raise ValueError(f"unknown mg_smoother {cfg.mg_smoother!r}; expected "
+                             "'chebyshev', 'chebyshev_fused' or 'jacobi'")
+        if cfg.mg_block_smoother not in ("line", "point"):
+            raise ValueError(f"unknown mg_block_smoother {cfg.mg_block_smoother!r}; "
+                             "expected 'line' or 'point'")
+        if cfg.mg_smoother == "chebyshev_fused":
+            if evolution or cfg.mg_normal_op == "factored":
+                raise ValueError(
+                    "mg_smoother='chebyshev_fused' needs the assembled stencil operator "
+                    "(mg_normal_op='stencil'); evolution systems fall back to 'factored' "
+                    "and are unsupported")
+            if cfg.mg_block_smoother != "line":
+                raise ValueError("mg_smoother='chebyshev_fused' implements the 'line' "
+                                 "block smoother only")
+            if mesh is not None:
+                raise ValueError("mg_smoother='chebyshev_fused' is incompatible with the "
+                                 "sp-sharded solve (halo-extended fine coefficients)")
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh: the sp-sharded solve is not ported (it needs the JAX package's "
+                "parallel/ on several cards)")
+        if evolution and cfg.mg_normal_op != "factored":
+            # evolution equation rows read the previous time step, which the
+            # assembled stencil (same-point entries) does not model; the
+            # factored A^T (A x) does
+            self.config = cfg = dataclasses.replace(cfg, mg_normal_op="factored")
+        self._factored_op = cfg.mg_normal_op == "factored"
+        self._point = cfg.mg_block_smoother == "point"
         self.solve_dtype = _resolve_solve_dtype(cfg.mg_solve_dtype, self.dtype)
 
         # grid hierarchy
@@ -132,10 +170,12 @@ class MultigridSolver:
 
         self.systems: List[PDESystem] = [
             PDESystem.build(d, order=order, init_index_mi_list=self.init_index_mi_list,
-                            n_iv=n_iv, step_size=0.01)
+                            n_iv=n_iv, step_size=0.01, evolution=evolution)
             for d in self.dim_list
         ]
-        self.descs = [make_desc(s.spec) for s in self.systems]
+        # assembled block-stencil descriptors; none on the factored operator
+        # (make_desc rejects evolution systems)
+        self.descs = None if self._factored_op else [make_desc(s.spec) for s in self.systems]
 
         # transfer matrices between consecutive levels (per axis)
         self._down = [
@@ -223,15 +263,23 @@ class MultigridSolver:
     # hierarchy setup
     # ------------------------------------------------------------------
 
+    def _block_nt(self, k: int) -> int:
+        """Time positions a smoother block spans on level k (1: point blocks)."""
+        return 1 if self._point else self.dim_list[k][0]
+
     def _level_precond_data(self, k: int, values: torch.Tensor) -> Dict[str, Any]:
-        """Per-level smoother data: time-line block inverses (1e-6 max-diag
-        ridge, Cholesky, explicit inverse; or the factor W = L^-T), assembled
-        stencil fields, both in their storage dtypes; lmax, estimated on the
-        stored operators, and the Chebyshev schedules of the pre/post
-        passes."""
+        """Per-level smoother data: block inverses (time-line or point
+        blocks; 1e-6 max-diag ridge, Cholesky, explicit inverse; or the
+        factor W = L^-T) and, on the stencil operator, the assembled stencil
+        fields, both in their storage dtypes (the factored operator keeps the
+        values' structured split); lmax, estimated on the stored operators,
+        and the Chebyshev schedules of the pre/post passes."""
         sysk = self.systems[k]
         v32 = values.to(self.pdtype)
-        B = sysk.assemble_line_blocks(v32)  # (bs, S, bw, bw)
+        if self._point:
+            B = sysk.assemble_point_blocks(v32)  # (bs, N, m, m)
+        else:
+            B = sysk.assemble_line_blocks(v32)  # (bs, S, bw, bw)
         nb = B.shape[-1]
         eye = torch.eye(nb, dtype=B.dtype, device=B.device)
         d = torch.diagonal(B, dim1=-2, dim2=-1)
@@ -245,32 +293,40 @@ class MultigridSolver:
         else:
             binv = torch.cholesky_solve(eye.expand_as(B), L)
         del B, L
-        coef = build_normal_coef(sysk.spec, self.descs[k], sysk.split_values(v32))
         # the rounded (or factored) operators must be stored before lmax is
         # estimated: Chebyshev amplifies any mode above an underestimate
-        lvl = {"values": v32, "binv": binv.to(self.binv_dtype).contiguous(),
-               "coef": coef.to(self.vdtype)}
+        lvl = {"values": v32, "binv": binv.to(self.binv_dtype).contiguous()}
+        if self._factored_op:
+            lvl["sv"] = sysk.split_values(v32)
+        else:
+            coef = build_normal_coef(sysk.spec, self.descs[k], sysk.split_values(v32))
+            lvl["coef"] = coef.to(self.vdtype)
         lvl["lmax"] = self._estimate_lmax(k, lvl)
         steps = max(self.config.mg_smoother_steps_pre, self.config.mg_smoother_steps_post)
         lvl["sched"] = chebyshev_schedule(lvl["lmax"], self.config.mg_chebyshev_ratio, steps)
         return lvl
 
     def _normal_apply(self, k: int, lvl, v: torch.Tensor, **epilogue) -> torch.Tensor:
-        """(AtA) v on level k (kernel K1 on CUDA)."""
+        """(AtA) v on level k with K1's epilogue (`stencil_apply`): kernel K1
+        on CUDA, or A^T (A v) through the structured operators."""
+        if self._factored_op:
+            spec, sv = self.systems[k].spec, lvl["sv"]
+            y = rmatvec_structured(spec, sv, matvec_structured(spec, sv, v))
+            return stencil_epilogue(y, x=v, **epilogue)
         return stencil_apply(self.descs[k], lvl["coef"], v, **epilogue)
 
-    def _block_apply(self, k: int, lvl, r: torch.Tensor) -> torch.Tensor:
-        """B^-1 r with the time-line block inverses (kernel K2 on CUDA), or
-        W (W^T r) with their factors (kernel K3)."""
+    def _block_apply(self, k: int, lvl, r: torch.Tensor, **epilogue) -> torch.Tensor:
+        """B^-1 r with the block inverses (kernel K2 on CUDA), or W (W^T r)
+        with their factors (kernel K3), with the kernels' epilogue."""
         apply = factored_block_apply if self._factored_binv else block_apply
-        return apply(lvl["binv"], r, self.dim_list[k][0])
+        return apply(lvl["binv"], r, self._block_nt(k), **epilogue)
 
     def _estimate_lmax(self, k: int, lvl, iters: int = 20) -> torch.Tensor:
         """Power iteration on B^-1 AtA (batched), biased high by the
         load-bearing mg_lmax_margin: Chebyshev amplifies any mode above the
         assumed lmax explosively."""
         n = self.systems[k].num_vars
-        bs = lvl["coef"].shape[0]
+        bs = lvl["values"].shape[0]
         x = torch.sin(torch.arange(n, dtype=self.pdtype, device=self.device) + 1.0)
         x = (x / torch.linalg.vector_norm(x)).expand(bs, n).contiguous()
         for _ in range(iters):
@@ -310,9 +366,13 @@ class MultigridSolver:
         """Per-constraint-block spectral rescaling of level-k values: scale
         each block by sqrt(<A_f P v>^2 / <A_c v>^2) summed over smooth probes,
         so the re-discretized coarse operator matches the finer one on the
-        smooth subspace."""
+        smooth subspace.  The products run in the ELL layout, packed once:
+        the JAX package's summation order, which the coarse scales (and so
+        an unconverged solve's last digits) follow."""
         sysf, sysc = self.systems[k - 1], self.systems[k]
         bs = fine_vals32.shape[0]
+        pf = sysf.pack_values(fine_vals32, adjoint=False)
+        pc = sysc.pack_values(coarse_vals32, adjoint=False)
         rf = self._block_row_slices(sysf)
         rc = self._block_row_slices(sysc)
         ec = self._block_entry_slices(sysc)
@@ -321,8 +381,8 @@ class MultigridSolver:
         qc = [0.0] * 4
         for v in self._probes(k):
             vb = v.expand(bs, -1)
-            Av_f = sysf.matvec(fine_vals32, self._prolong_vec(k - 1, vb))
-            Av_c = sysc.matvec(coarse_vals32, vb)
+            Av_f = sysf.matvec_packed(pf, self._prolong_vec(k - 1, vb))
+            Av_c = sysc.matvec_packed(pc, vb)
             for b in range(4):
                 qf[b] = qf[b] + (Av_f[:, rf[b][0] : rf[b][1]] ** 2).sum(dim=1)
                 qc[b] = qc[b] + (Av_c[:, rc[b][0] : rc[b][1]] ** 2).sum(dim=1)
@@ -387,13 +447,19 @@ class MultigridSolver:
     # smoother and transfers (batched, f32)
     # ------------------------------------------------------------------
 
-    def _smooth(self, k: int, lvl, b, x, steps: int, x0_zero: bool = False,
+    def _smooth(self, k: int, lvl, b, x, steps: int, back: bool, x0_zero: bool = False,
                 want_residual: bool = False):
-        """Chebyshev smoothing pass (ops/fused_smoother.chebyshev_smooth);
-        with want_residual also returns r = b - A x from the recurrence."""
-        x, r = chebyshev_smooth(self.descs[k], self.dim_list[k][0], lvl["coef"],
-                                lvl["binv"], b, x, lvl["sched"], steps, x0_zero,
-                                factored=self._factored_binv)
+        """One smoothing pass (ops/fused_smoother.py): Chebyshev, whose
+        want_residual returns r = b - A x from the recurrence; or weighted
+        block Jacobi (weight jacobi_w on the backward solve, jacobi_w_forward
+        on the forward), which recomputes it."""
+        apply = lambda v, **ep: self._normal_apply(k, lvl, v, **ep)
+        block = lambda r, **ep: self._block_apply(k, lvl, r, **ep)
+        cfg = self.config
+        if cfg.mg_smoother == "jacobi":
+            w = cfg.jacobi_w if back else cfg.jacobi_w_forward
+            return jacobi_smooth(apply, block, b, x, steps, w, x0_zero, want_residual)
+        x, r = chebyshev_smooth_op(apply, block, b, x, lvl["sched"], steps, x0_zero)
         return (x, r) if want_residual else x
 
     def _restrict_vec(self, k: int, r: torch.Tensor) -> torch.Tensor:
@@ -415,33 +481,34 @@ class MultigridSolver:
     # V-cycle
     # ------------------------------------------------------------------
 
-    def v_cycle(self, hier, b, k: int = 0, return_residual: bool = False):
+    def v_cycle(self, hier, b, k: int = 0, back: bool = False,
+                return_residual: bool = False):
         cfg = self.config
         lvl = hier["levels"][k]
         if cfg.mg_smoother_residual:
-            x, r = self._smooth(k, lvl, b, None, cfg.mg_smoother_steps_pre,
+            x, r = self._smooth(k, lvl, b, None, cfg.mg_smoother_steps_pre, back,
                                 x0_zero=True, want_residual=True)
         else:
-            x = self._smooth(k, lvl, b, None, cfg.mg_smoother_steps_pre, x0_zero=True)
+            x = self._smooth(k, lvl, b, None, cfg.mg_smoother_steps_pre, back, x0_zero=True)
             r = self._normal_apply(k, lvl, x, rin=b)
         rH = self._restrict_vec(k, r)
         if k == self.n_grid - 2:
             deltaH = torch.bmm(hier["coarse_inv"], rH[:, :, None])[..., 0]
         else:
-            deltaH = self.v_cycle(hier, rH, k + 1)
+            deltaH = self.v_cycle(hier, rH, k + 1, back)
         # raw (unit-step) coarse correction
         x = x + self._prolong_vec(k, deltaH)
-        return self._smooth(k, lvl, b, x, cfg.mg_smoother_steps_post,
+        return self._smooth(k, lvl, b, x, cfg.mg_smoother_steps_post, back,
                             want_residual=return_residual)
 
     def precondition(self, hier, r: torch.Tensor, back: bool = False) -> torch.Tensor:
         """mg_steps V-cycles from a zero guess, in f32; cast at the boundary."""
         n_step = self.config.mg_steps_backward if back else self.config.mg_steps_forward
         rp = r.to(self.pdtype).contiguous()
-        x = self.v_cycle(hier, rp, 0)
+        x = self.v_cycle(hier, rp, 0, back)
         for _ in range(n_step - 1):
             res = self._normal_apply(0, hier["levels"][0], x, rin=rp)
-            x = x + self.v_cycle(hier, res, 0)
+            x = x + self.v_cycle(hier, res, 0, back)
         return x.to(r.dtype)
 
     def precondition_with_Az(self, hier, r: torch.Tensor, back: bool = False):
@@ -449,15 +516,25 @@ class MultigridSolver:
         the post-smoother's residual invariant (no fine-level apply)."""
         n_step = self.config.mg_steps_backward if back else self.config.mg_steps_forward
         rp = r.to(self.pdtype).contiguous()
-        x, res = self.v_cycle(hier, rp, 0, return_residual=True)
+        x, res = self.v_cycle(hier, rp, 0, back, return_residual=True)
         for _ in range(n_step - 1):
-            dx, res = self.v_cycle(hier, res, 0, return_residual=True)
+            dx, res = self.v_cycle(hier, res, 0, back, return_residual=True)
             x = x + dx
         return x.to(r.dtype), (rp - res).to(r.dtype)
 
     # ------------------------------------------------------------------
     # FGMRES solve on the fine normal equations (batched)
     # ------------------------------------------------------------------
+
+    def _fine_op(self, hier, fine_values):
+        """The fine-level AtA matvec in the solve dtype: K1 on the stencil
+        fields, or A^T (A v) on the values' structured split."""
+        if self._factored_op:
+            spec = self.systems[0].spec
+            sv = self.systems[0].split_values(fine_values.detach().to(self.solve_dtype))
+            return lambda v: rmatvec_structured(spec, sv, matvec_structured(spec, sv, v))
+        coef, desc0 = self._fine_coef(hier, fine_values), self.descs[0]
+        return lambda v: stencil_apply(desc0, coef, v)
 
     def _fine_coef(self, hier, fine_values) -> torch.Tensor:
         """Fine-level stencil fields in the solve dtype, built once per
@@ -482,13 +559,11 @@ class MultigridSolver:
         maxiter = cfg.mg_fgmres_max_iter_backward if back else cfg.mg_fgmres_max_iter_forward
         atb = rhs_vec if back else sys0.rmatvec_s(fine_values, rhs_vec)
         out_dtype = atb.dtype
-        coef = self._fine_coef(hier, fine_values)
-        desc0 = self.descs[0]
         pmv = None
         if cfg.mg_fused_matvec:
             pmv = lambda r: self.precondition_with_Az(hier, r, back=back)
         res = krylov.fgmres(
-            lambda v: stencil_apply(desc0, coef, v),
+            self._fine_op(hier, fine_values),
             atb.to(self.solve_dtype),
             precond=lambda r: self.precondition(hier, r, back=back),
             restart=restart,
