@@ -21,6 +21,14 @@
 // The assembled band fields are zero wherever p + s crosses an axis edge,
 // which makes this exact on the C-order flat grid.
 //
+// Output window: a launch computes y at the n_out points p_begin ..
+// p_begin + n_out - 1 of each sample (the whole grid: 0, N).  Neighbour reads
+// still see all N points (a point off them reads as zero), and out, rin, xin
+// and xout hold only the window: (bs, n_out, M), the window's point q at row
+// q - p_begin.  The sp-sharded apply (parallel/sharded_normal.py) launches on
+// a rank's slab of n_loc + 8 planes, HALO = 4 exchanged planes each side,
+// with the window on its own n_loc planes.
+//
 // Epilogue (one launch per Chebyshev step's stencil half):
 //   out = rin - y   if rin != nullptr, else out = y
 //   xout = xin + x  if xout != nullptr (xin == nullptr reads as zero)
@@ -60,8 +68,9 @@
 //   below p0 beside the forward one at p0.  With P = 1 the thread reads only
 //   the 1 + ORDER channels it uses at each neighbour.
 // - A grid that fills the card.  128 threads a CTA; P > 1 only where the
-//   rows allow it (N % P == 0, 16-byte aligned operands) and the grid then
-//   still gives every SM two CTAs, else P = 1 (GL level 1: 512 CTAs).
+//   rows allow it (N, p_begin and n_out multiples of P, 16-byte aligned
+//   operands) and the grid then still gives every SM two CTAs, else P = 1
+//   (GL level 1: 512 CTAs).  The grid covers the window only.
 // x is not staged in shared memory: the neighbour reads at p +- s hit L1
 // for the short strides and L2 for the time axis.
 //
@@ -350,24 +359,26 @@ __device__ __forceinline__ void axis_last(const TC* cb, const T* xb, int N, int 
 }
 
 // TC: stored coefficient type; T: vector and sum type.  A thread computes
-// the P points p0 .. p0+P-1 of sample blockIdx.y.  P > 1 requires
-// N % P == 0 and 16-byte aligned operands (the wrapper's geometry).
+// the P points p0 .. p0+P-1 of sample blockIdx.y, in the window p_begin ..
+// p_begin + n_out - 1.  P > 1 requires N, p_begin and n_out multiples of P
+// and 16-byte aligned operands (the wrapper's geometry).
 template <typename TC, typename T, int NCOORD, int ORDER, int P>
 __global__ void __launch_bounds__(kThreads)
     k1_stencil_apply(const TC* __restrict__ coef, const T* __restrict__ x, int s0, int s1, int N,
-                     const T* rin, T* out, const T* xin, T* xout) {
+                     int p_begin, int n_out, const T* rin, T* out, const T* xin, T* xout) {
   using L = Layout<NCOORD, ORDER>;
   constexpr int M = L::M, R = P * M;
   constexpr bool VEC = P > 1;
-  const int p0 = (blockIdx.x * kThreads + threadIdx.x) * P;
-  if (p0 >= N) return;
+  const int q0 = (blockIdx.x * kThreads + threadIdx.x) * P;  // in the window
+  if (q0 >= n_out) return;
+  const int p0 = p_begin + q0;
   const size_t b = blockIdx.y;
   const TC* cb = coef + b * (size_t)L::NC * N;
   const T* xb = x + b * (size_t)N * M;
-  const size_t o = (b * (size_t)N + p0) * M;  // the thread's run in x, out, ...
+  const size_t o = (b * (size_t)n_out + q0) * M;  // the thread's run in out, rin, xin, xout
 
   T xr[R], y[R];
-  ld_run<VEC, true, R>(x + o, xr);
+  ld_run<VEC, true, R>(xb + (size_t)p0 * M, xr);
 
   // dense offset-0 block: y[q, i] = sum_j D[i, j](p0 + q) x[p0 + q, j]
 #pragma unroll
@@ -420,16 +431,17 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename TC, typename T, int NCOORD, int ORDER>
-int launch_layout(const TC* coef, const T* x, int s0, int s1, int N, int bs, int P, int grid_x,
-                  const T* rin, T* out, const T* xin, T* xout, cudaStream_t stream) {
+int launch_layout(const TC* coef, const T* x, int s0, int s1, int N, int p_begin, int n_out,
+                  int bs, int P, int grid_x, const T* rin, T* out, const T* xin, T* xout,
+                  cudaStream_t stream) {
   constexpr int PV = 16 / (int)sizeof(T);  // the vector width: 4 in f32, 2 in f64
   const dim3 grid(grid_x, bs);
   if (P == 1) {
-    k1_stencil_apply<TC, T, NCOORD, ORDER, 1>
-        <<<grid, kThreads, 0, stream>>>(coef, x, s0, s1, N, rin, out, xin, xout);
-  } else if (P == PV && N % PV == 0) {
-    k1_stencil_apply<TC, T, NCOORD, ORDER, PV>
-        <<<grid, kThreads, 0, stream>>>(coef, x, s0, s1, N, rin, out, xin, xout);
+    k1_stencil_apply<TC, T, NCOORD, ORDER, 1><<<grid, kThreads, 0, stream>>>(
+        coef, x, s0, s1, N, p_begin, n_out, rin, out, xin, xout);
+  } else if (P == PV && N % PV == 0 && p_begin % PV == 0 && n_out % PV == 0) {
+    k1_stencil_apply<TC, T, NCOORD, ORDER, PV><<<grid, kThreads, 0, stream>>>(
+        coef, x, s0, s1, N, p_begin, n_out, rin, out, xin, xout);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -437,17 +449,17 @@ int launch_layout(const TC* coef, const T* x, int s0, int s1, int N, int bs, int
 }
 
 template <typename TC, typename T>
-int launch(const TC* coef, const T* x, int n_coord, int order, int s0, int s1, int N, int bs,
-           int P, int threads, int grid_x, const T* rin, T* out, const T* xin, T* xout,
-           void* stream) {
-  if (N < 1 || bs < 1 || grid_x < 1 || threads != kThreads ||
-      (long long)grid_x * kThreads * P < N)
+int launch(const TC* coef, const T* x, int n_coord, int order, int s0, int s1, int N,
+           int p_begin, int n_out, int bs, int P, int threads, int grid_x, const T* rin, T* out,
+           const T* xin, T* xout, void* stream) {
+  if (N < 1 || p_begin < 0 || n_out < 1 || p_begin + n_out > N || bs < 1 || grid_x < 1 ||
+      threads != kThreads || (long long)grid_x * kThreads * P < n_out)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-#define K1_LAYOUT(NCOORD, ORDER)                                                            \
-  if (n_coord == NCOORD && order == ORDER)                                                  \
-    return launch_layout<TC, T, NCOORD, ORDER>(coef, x, s0, s1, N, bs, P, grid_x, rin, out, \
-                                               xin, xout, st);
+#define K1_LAYOUT(NCOORD, ORDER)                                                              \
+  if (n_coord == NCOORD && order == ORDER)                                                    \
+    return launch_layout<TC, T, NCOORD, ORDER>(coef, x, s0, s1, N, p_begin, n_out, bs, P,     \
+                                               grid_x, rin, out, xin, xout, st);
   K1_LAYOUT(1, 1)
   K1_LAYOUT(1, 2)
   K1_LAYOUT(2, 1)
@@ -463,29 +475,31 @@ int launch(const TC* coef, const T* x, int n_coord, int order, int s0, int s1, i
 extern "C" {
 
 // coef, x; the layout (n_coord, order) and the strides of axes 0 and 1 when
-// they are not the last; N, bs; the geometry (P, threads, grid_x); the
-// epilogue operands; the stream
+// they are not the last; N, the output window (p_begin, n_out), bs; the
+// geometry (P, threads, grid_x); the epilogue operands; the stream
 int k1_stencil_apply_f32(const float* coef, const float* x, int n_coord, int order, int s0,
-                         int s1, int N, int bs, int P, int threads, int grid_x, const float* rin,
-                         float* out, const float* xin, float* xout, void* stream) {
-  return launch<float, float>(coef, x, n_coord, order, s0, s1, N, bs, P, threads, grid_x, rin,
-                              out, xin, xout, stream);
+                         int s1, int N, int p_begin, int n_out, int bs, int P, int threads,
+                         int grid_x, const float* rin, float* out, const float* xin, float* xout,
+                         void* stream) {
+  return launch<float, float>(coef, x, n_coord, order, s0, s1, N, p_begin, n_out, bs, P, threads,
+                              grid_x, rin, out, xin, xout, stream);
 }
 
 int k1_stencil_apply_f64(const double* coef, const double* x, int n_coord, int order, int s0,
-                         int s1, int N, int bs, int P, int threads, int grid_x, const double* rin,
-                         double* out, const double* xin, double* xout, void* stream) {
-  return launch<double, double>(coef, x, n_coord, order, s0, s1, N, bs, P, threads, grid_x, rin,
-                                out, xin, xout, stream);
+                         int s1, int N, int p_begin, int n_out, int bs, int P, int threads,
+                         int grid_x, const double* rin, double* out, const double* xin,
+                         double* xout, void* stream) {
+  return launch<double, double>(coef, x, n_coord, order, s0, s1, N, p_begin, n_out, bs, P,
+                                threads, grid_x, rin, out, xin, xout, stream);
 }
 
 // bf16 coefficients, f32 vectors
 int k1_stencil_apply_bf16(const __nv_bfloat16* coef, const float* x, int n_coord, int order,
-                          int s0, int s1, int N, int bs, int P, int threads, int grid_x,
-                          const float* rin, float* out, const float* xin, float* xout,
-                          void* stream) {
-  return launch<__nv_bfloat16, float>(coef, x, n_coord, order, s0, s1, N, bs, P, threads, grid_x,
-                                      rin, out, xin, xout, stream);
+                          int s0, int s1, int N, int p_begin, int n_out, int bs, int P,
+                          int threads, int grid_x, const float* rin, float* out, const float* xin,
+                          float* xout, void* stream) {
+  return launch<__nv_bfloat16, float>(coef, x, n_coord, order, s0, s1, N, p_begin, n_out, bs, P,
+                                      threads, grid_x, rin, out, xin, xout, stream);
 }
 
 const char* k1_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

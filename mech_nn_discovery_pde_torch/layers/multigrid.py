@@ -8,10 +8,11 @@ grids, and the third output carries the forward-solve stats when
 
 The layer lives on one device (`device`, default "cuda"); inputs are moved
 there and cast to the solver dtype.  It takes every solver option of the
-JAX package's layer on one device (evolution systems, the factored normal
-operator, the Jacobi and point-block smoothers; solvers/multigrid.py);
-`mesh` (the sp-sharded solve over several devices) raises
-NotImplementedError.
+JAX package's layer (evolution systems, the factored normal operator, the
+Jacobi and point-block smoothers; solvers/multigrid.py), and `mesh` with
+`sp_axis`: the fine level split along grid axis 0 over the ranks of the
+mesh's 'sp' group, one process per device, each of which calls the layer
+alike.  Inputs and outputs are global on every rank, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -48,7 +49,11 @@ class MultigridLayer:
         config: Optional[PDEConfig] = None,
         device="cuda",
         mesh=None,
+        sp_axis: str = "sp",
     ):
+        """`mesh` (parallel/mesh.py's DeviceMesh, optional): sp-shard the
+        fine level over the ranks of its `sp_axis` group (grid axis 0 split;
+        needs mg_normal_op='stencil' and mg_block_smoother='point')."""
         del n_iv_steps, gamma, alpha, double_ret
         self.bs = bs
         self.coord_dims = tuple(coord_dims)
@@ -65,7 +70,7 @@ class MultigridLayer:
             init_index_mi_list=init_index_mi_list or [], coord_dims=self.coord_dims,
             solver_dbl=solver_dbl, evolution=evolution,
             downsample_first=downsample_first, n_grid=n_grid, config=self.config,
-            device=self.device, mesh=mesh,
+            device=self.device, mesh=mesh, sp_axis=sp_axis,
         )
         self.system = self.mg_solver.systems[0]
         self.n_orders = self.system.var_set.n_mi

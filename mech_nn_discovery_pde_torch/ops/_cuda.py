@@ -10,7 +10,8 @@ time, so the CPU tests import every module freely.
 A failed build or launch raises; there is no fallback.  `LAUNCHES` counts
 kernel launches by kernel name (one per launch, incremented by the wrapper
 that launches); `chip_smoke.py` resets it before the main path and reads it
-after.
+after.  `WINDOW_LAUNCHES` counts, by the same names, the K1 launches among
+them whose output window is not the whole grid (the sp-sharded apply).
 """
 
 from __future__ import annotations
@@ -36,18 +37,20 @@ NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
 SOURCES = {"stencil_apply": "stencil_apply.cu", "line_block": "line_block.cu"}
 
 LAUNCHES: collections.Counter = collections.Counter()
+WINDOW_LAUNCHES: collections.Counter = collections.Counter()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     # coef, x, the layout (n_coord, order, s0, s1; ops/normal_stencil.
-    # k1_layout_args), (N, bs), the launch geometry (P, threads, grid_x;
-    # ops/normal_stencil.stencil_geometry), rin, out, xin, xout, stream
+    # k1_layout_args), (N, the output window p_begin, n_out, bs), the launch
+    # geometry (P, threads, grid_x; ops/normal_stencil.stencil_geometry), rin,
+    # out, xin, xout, stream
     "stencil_apply": {
-        "k1_stencil_apply_f32": [_P] * 2 + [_I] * 9 + [_P] * 5,
-        "k1_stencil_apply_f64": [_P] * 2 + [_I] * 9 + [_P] * 5,
-        "k1_stencil_apply_bf16": [_P] * 2 + [_I] * 9 + [_P] * 5,
+        "k1_stencil_apply_f32": [_P] * 2 + [_I] * 11 + [_P] * 5,
+        "k1_stencil_apply_f64": [_P] * 2 + [_I] * 11 + [_P] * 5,
+        "k1_stencil_apply_bf16": [_P] * 2 + [_I] * 11 + [_P] * 5,
     },
     # operands, (m, nt, S, bs), the launch geometry (ctas, panel rows,
     # stages, smem_bytes, bulk; ops/fused_smoother.line_block_geometry), stream
@@ -124,12 +127,15 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def check(name: str, kernel: str, code: int) -> None:
-    """Raise if a launcher returned a CUDA error; count the launch if not."""
+def check(name: str, kernel: str, code: int, windowed: bool = False) -> None:
+    """Raise if a launcher returned a CUDA error; count the launch if not
+    (also in WINDOW_LAUNCHES when `windowed`)."""
     if code != 0:
         text = getattr(library(name), _ERROR_FN[name])(code).decode()
         raise RuntimeError(f"{kernel} launch failed: CUDA error {code} ({text})")
     LAUNCHES[kernel] += 1
+    if windowed:
+        WINDOW_LAUNCHES[kernel] += 1
 
 
 def ptr(t) -> int | None:

@@ -23,8 +23,11 @@ launches kernel K1 (csrc/stencil_apply.cu), which replaces the TPU kernel
 `_stencil_kernel_body` of mech_nn_discovery_pde_tpu/ops/normal_stencil.py;
 on CPU tensors it runs `stencil_apply_plain`, the same gather form written
 as a few whole-tensor PyTorch gathers.  Both carry the same epilogue
-(residual update, iterate update).  K1 is compiled for each (n_coord,
-order) layout (`K1_LAYOUTS`) with every channel index a constant;
+(residual update, iterate update) and take an output window: y at a run of
+points only, the reads still over the whole grid (the sp-sharded apply of
+parallel/sharded_normal.py computes a rank's planes on its haloed slab).
+K1 is compiled for each (n_coord, order) layout (`K1_LAYOUTS`) with every
+channel index a constant;
 `k1_layout_args` checks a descriptor against that layout before the first
 launch, and `stencil_geometry` picks the points per thread and the grid.
 The stored fields may be bfloat16 (mg_precond_dtype='bf16') with float32
@@ -268,13 +271,14 @@ def stencil_apply_plain(
     out: Optional[torch.Tensor] = None,
     xin: Optional[torch.Tensor] = None,
     xout: Optional[torch.Tensor] = None,
+    window: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """K1's plain version: K1's gather form over all bands at once,
       y[p, ci] += g_k[p] x[p + s_k, cj]   and   y[p, cj] += g_k[p - s_k] x[p - s_k, ci]
     for every band k, a neighbour off the flat grid reading as zero.
 
     coef (bs, NC, N), x (bs, N*m) point-major -> (AtA) x, with K1's
-    epilogue (see `stencil_apply`)."""
+    epilogue and output window (see `stencil_apply`)."""
     if coef.dtype == torch.bfloat16:
         coef = coef.float()
     N, m = desc.grid_size, desc.n_mi
@@ -292,7 +296,17 @@ def stencil_apply_plain(
     Y.index_add_(1, ci, G * take(Xz, x_fwd))
     Y.index_add_(1, cj, take(Gz, g_bwd) * take(Xz, x_bwd))
     y = Y.transpose(1, 2).reshape(bs, -1)
+    if window is not None:
+        p0, n = _check_window(window, N)
+        y, x = y[:, p0 * m : (p0 + n) * m], x[:, p0 * m : (p0 + n) * m]
     return stencil_epilogue(y, rin, out, x, xin, xout)
+
+
+def _check_window(window: Tuple[int, int], N: int) -> Tuple[int, int]:
+    p0, n = int(window[0]), int(window[1])
+    if p0 < 0 or n < 1 or p0 + n > N:
+        raise ValueError(f"stencil_apply: window {window} is not a run of the {N} points")
+    return p0, n
 
 
 # (n_coord, order) pairs K1 is instantiated for: every pair VariableSet takes
@@ -354,14 +368,15 @@ class StencilGeometry(NamedTuple):
 
 def stencil_geometry(N: int, bs: int, itemsize: int, n_sm: int,
                      aligned: bool = True) -> StencilGeometry:
-    """K1's launch geometry for bs samples of N points with vectors of
-    `itemsize` bytes (4: f32, also with bf16 fields; 8: f64) on a card of
-    `n_sm` SMs.  Thread t of CTA (i, b) takes the P points
-    (i * threads + t) * P + q, q < P, of sample b that lie below N.
+    """K1's launch geometry for bs samples of N output points (the window's)
+    with vectors of `itemsize` bytes (4: f32, also with bf16 fields; 8: f64)
+    on a card of `n_sm` SMs.  Thread t of CTA (i, b) takes the P points
+    (i * threads + t) * P + q, q < P, of sample b's window that lie below N.
 
     P = 16 // itemsize (16-byte loads) where the rows allow it (N % P == 0
-    and `aligned`: every operand 16-byte aligned) and the grid then still
-    gives every SM two CTAs; else P = 1 (the GL level-1 shape)."""
+    and `aligned`: every operand 16-byte aligned and, for a window, the
+    grid's size and the window's start multiples of P) and the grid then
+    still gives every SM two CTAs; else P = 1 (the GL level-1 shape)."""
     if min(N, bs, n_sm) < 1 or itemsize not in (4, 8):
         raise ValueError(f"stencil_geometry: bad shape N={N} bs={bs} itemsize={itemsize} "
                          f"n_sm={n_sm}")
@@ -383,20 +398,25 @@ def stencil_apply(
     out: Optional[torch.Tensor] = None,
     xin: Optional[torch.Tensor] = None,
     xout: Optional[torch.Tensor] = None,
+    window: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """y = (AtA) x for a batch: coef (bs, NC, N), x (bs, N*m) point-major;
     coef float32/float64 with x of the same dtype, or bfloat16 with float32 x.
 
+    Output window (p0, n): y only at the points p0 .. p0+n-1, as (bs, n*m);
+    the neighbour reads still see all N points.  None: the whole grid.
+
     Epilogue: returns rin - y when `rin` is given, else y (written into `out`
     when given, which may be rin itself); with `xout` also writes
-    xout = xin + x (xin None reads as zero; xout may be xin itself).
+    xout = xin + x (xin None reads as zero; xout may be xin itself).  rin,
+    out, xin and xout are window-sized, and x there is x's window.
 
     CUDA tensors launch kernel K1; CPU tensors run the plain version."""
     if coef.is_cuda:
-        return _stencil_apply_k1(desc, coef, x, rin, out, xin, xout)
+        return _stencil_apply_k1(desc, coef, x, rin, out, xin, xout, window)
     if coef.device.type != "cpu":
         raise ValueError(f"stencil_apply: unsupported device {coef.device}")
-    return stencil_apply_plain(desc, coef, x, rin, out, xin, xout)
+    return stencil_apply_plain(desc, coef, x, rin, out, xin, xout, window)
 
 
 # (coef dtype, vector dtype) -> (launcher, launch-count name); the float64
@@ -411,11 +431,12 @@ _K1_FN = {
 _K1_PLANS: Dict[tuple, tuple] = {}
 
 
-def _k1_plan(desc, coef, x):
-    """K1's launch for operands of these shapes, dtypes and device, checked
-    once and cached: (launcher, launch-count name, k1_layout_args, the
-    geometry for 16-byte aligned operands)."""
-    key = (desc, coef.shape, x.shape, coef.dtype, x.dtype, coef.device)
+def _k1_plan(desc, coef, x, window):
+    """K1's launch for operands of these shapes, dtypes, device and output
+    window, checked once and cached: (launcher, launch-count name,
+    k1_layout_args, the window (p0, n), the geometry for 16-byte aligned
+    operands)."""
+    key = (desc, coef.shape, x.shape, coef.dtype, x.dtype, coef.device, window)
     plan = _K1_PLANS.get(key)
     if plan is None:
         bs, NC, N = coef.shape
@@ -430,31 +451,35 @@ def _k1_plan(desc, coef, x):
             raise ValueError(f"stencil_apply: K1 takes coef/x float32/float32, float64/float64 "
                              f"or bfloat16/float32, got {coef.dtype}/{x.dtype}")
         layout = k1_layout_args(desc)
-        geo = stencil_geometry(N, bs, x.element_size(), _cuda.sm_count(coef.device))
-        plan = _K1_PLANS[key] = (*fn, layout, geo)
+        p0, n = (0, N) if window is None else _check_window(window, N)
+        pv = 16 // x.element_size()
+        geo = stencil_geometry(n, bs, x.element_size(), _cuda.sm_count(coef.device),
+                               aligned=N % pv == 0 and p0 % pv == 0)
+        plan = _K1_PLANS[key] = (*fn, layout, (p0, n), geo)
     return plan
 
 
-def _stencil_apply_k1(desc, coef, x, rin, out, xin, xout):
-    launcher, counted, (n_coord, order, s0, s1), geo = _k1_plan(desc, coef, x)
+def _stencil_apply_k1(desc, coef, x, rin, out, xin, xout, window=None):
+    launcher, counted, (n_coord, order, s0, s1), (p0, n), geo = _k1_plan(desc, coef, x, window)
+    bs, _, N = coef.shape
+    shape = (bs, n * desc.n_mi)
     if out is None:
-        out = torch.empty_like(x)
+        out = x.new_empty(shape)
     for t in (rin, out, xin, xout):
-        if t is not None and (t.dtype != x.dtype or t.shape != x.shape):
+        if t is not None and (t.dtype != x.dtype or tuple(t.shape) != shape):
             raise ValueError("stencil_apply: epilogue operand dtype/shape mismatch")
     for t in (out, xout):
         if t is not None and t.data_ptr() == x.data_ptr():
             raise ValueError("stencil_apply: outputs must not alias x (read at neighbours)")
     ops = (coef, x, rin, out, xin, xout)
     _cuda.require_cuda(*ops)
-    bs, _, N = coef.shape
     if geo.P > 1 and any(t.data_ptr() % 16 for t in ops if t is not None):
-        geo = stencil_geometry(N, bs, x.element_size(), _cuda.sm_count(coef.device),
+        geo = stencil_geometry(n, bs, x.element_size(), _cuda.sm_count(coef.device),
                                aligned=False)
     code = getattr(_cuda.library("stencil_apply"), launcher)(
-        coef.data_ptr(), x.data_ptr(), n_coord, order, s0, s1, N, bs, geo.P, geo.threads,
-        geo.grid[0], _cuda.ptr(rin), out.data_ptr(), _cuda.ptr(xin), _cuda.ptr(xout),
-        _cuda.stream_ptr(coef.device),
+        coef.data_ptr(), x.data_ptr(), n_coord, order, s0, s1, N, p0, n, bs, geo.P,
+        geo.threads, geo.grid[0], _cuda.ptr(rin), out.data_ptr(), _cuda.ptr(xin),
+        _cuda.ptr(xout), _cuda.stream_ptr(coef.device),
     )
-    _cuda.check("stencil_apply", counted, code)
+    _cuda.check("stencil_apply", counted, code, windowed=n != N)
     return out

@@ -33,6 +33,14 @@ FGMRES:
 
 The dot products and axpys are library calls (batched matmuls).  The window
 loop reads one flag from the device per window.
+
+`reduce` (fgmres; `_dot`, `_norm`): where each rank holds a run of every
+vector (the sp-sharded solve), the per-sample partial sums of the dots and
+squared norms go through reduce (an all-reduce over the ranks) before use:
+one call per Gram-Schmidt pass for all its (bs, restart+1) dots, one per
+norm.  Every rank then holds the same norms, so all take the same stopping
+decisions and issue the same collectives.  None (the default) is one
+device: the sums are the unsharded ones, bit for bit.
 """
 
 from __future__ import annotations
@@ -55,13 +63,17 @@ def _safe_div(a, b):
     return a / torch.where(b == 0, torch.ones_like(b), b)
 
 
-def _dot(a, b):
+def _dot(a, b, reduce: Optional[Callable] = None):
     """Per-sample inner products (bs,) of (bs, n) tensors."""
-    return (a * b).sum(dim=1)
+    d = (a * b).sum(dim=1)
+    return d if reduce is None else reduce(d)
 
 
-def _norm(a):
-    return torch.linalg.vector_norm(a, dim=1)
+def _norm(a, reduce: Optional[Callable] = None):
+    """Per-sample 2-norms (bs,) of a (bs, n) tensor."""
+    if reduce is None:
+        return torch.linalg.vector_norm(a, dim=1)
+    return torch.sqrt(reduce((a * a).sum(dim=1)))
 
 
 def _while_masked(cond: Callable, body: Callable, state: Dict[str, torch.Tensor],
@@ -94,16 +106,18 @@ def fgmres(
     atol: float = 1e-5,
     tol: float = 1e-5,
     precond_matvec: Optional[Callable] = None,
+    reduce: Optional[Callable] = None,
 ) -> KrylovResult:
     """Flexible GMRES on a batch of right-hand sides b (bs, n)."""
     precond = precond or (lambda v: v)
     bs, n = b.shape
     x = torch.zeros_like(b) if x0 is None else x0
-    thresh = torch.clamp(tol * torch.linalg.vector_norm(b, dim=1), min=atol)
+    thresh = torch.clamp(tol * _norm(b, reduce), min=atol)
+    red = reduce or (lambda t: t)
 
     def restart_cycle(x):
         r = b - matvec(x)
-        beta = torch.linalg.vector_norm(r, dim=1)
+        beta = _norm(r, reduce)
         V = b.new_zeros((bs, restart + 1, n))
         Z = b.new_zeros((bs, restart, n))
         V[:, 0] = _safe_div(r, beta[:, None])
@@ -122,12 +136,12 @@ def fgmres(
             Z[:, j] = z
             # CGS2: rows > j of V are zero, so the full product projects
             # exactly onto the built basis
-            h1 = torch.bmm(V, u[:, :, None])[..., 0]
+            h1 = red(torch.bmm(V, u[:, :, None])[..., 0])
             u = u - torch.bmm(V.transpose(1, 2), h1[:, :, None])[..., 0]
-            h2 = torch.bmm(V, u[:, :, None])[..., 0]
+            h2 = red(torch.bmm(V, u[:, :, None])[..., 0])
             u = u - torch.bmm(V.transpose(1, 2), h2[:, :, None])[..., 0]
             h = h1 + h2
-            hn = torch.linalg.vector_norm(u, dim=1)
+            hn = _norm(u, reduce)
             V[:, j + 1] = _safe_div(u, hn[:, None])
             # previous rotations on the new column h[0..j], then h[j+1] = hn
             hcol = b.new_zeros((bs, restart + 1))
@@ -157,14 +171,14 @@ def fgmres(
             y[:, i] = _safe_div(resid, R[:, i, i])
         return x + torch.bmm(Z.transpose(1, 2), y[:, :, None])[..., 0]
 
-    rn = torch.linalg.vector_norm(b - matvec(x), dim=1)
+    rn = _norm(b - matvec(x), reduce)
     it = torch.zeros(bs, dtype=torch.int64, device=b.device)
     while True:
         active = (rn > thresh) & (it < maxiter)
         if not bool(active.any()):
             break
         x_new = restart_cycle(x)
-        rn_new = torch.linalg.vector_norm(b - matvec(x_new), dim=1)
+        rn_new = _norm(b - matvec(x_new), reduce)
         x = torch.where(active[:, None], x_new, x)
         rn = torch.where(active, rn_new, rn)
         it = torch.where(active, it + restart, it)

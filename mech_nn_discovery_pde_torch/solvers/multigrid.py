@@ -33,8 +33,21 @@ over a leading sample axis throughout:
 The hierarchy carries no gradient (it only affects convergence); gradients
 flow through the IFT backward in ops/normal_solve.py.
 
-Not ported (it raises NotImplementedError): the sp-sharded solve (`mesh`),
-which needs the JAX package's parallel/ on several cards.
+The sp-sharded solve (`mesh`, a DeviceMesh of parallel/mesh.py with an
+`sp_axis`; the JAX package's explicit sharding of the fine level): grid
+axis 0 of the fine level is split over the 'sp' group's ranks, each of
+which runs the same solve on its planes.  It takes the stencil operator
+and point blocks, as in the JAX package (a time-line block spans axis 0).
+A rank holds its planes of the fine level's stencil fields (their halo
+exchanged once per hierarchy; parallel/sharded_normal.py), point-block
+inverses, smoother vectors and FGMRES basis; K1 applies AtA on its haloed
+slab with an output window and K2 its point blocks.  The FGMRES dots and
+norms and the lmax power iteration's norms are all-reduced over the group;
+restriction applies the axis-0 matrix to the rank's columns and sums the
+coarse vector over the group; prolongation computes the rank's rows.  The
+coarse levels are replicated: every rank computes them alike.  Inputs and
+outputs stay global: each solve takes its right-hand side's run and
+gathers its solution, so the IFT backward runs unchanged on global arrays.
 """
 
 from __future__ import annotations
@@ -62,6 +75,11 @@ from mech_nn_discovery_pde_torch.ops.normal_stencil import (
 )
 from mech_nn_discovery_pde_torch.ops.structured import matvec_structured, rmatvec_structured
 from mech_nn_discovery_pde_torch.ops.system import PDESystem
+from mech_nn_discovery_pde_torch.parallel.mesh import all_gather_cat, all_reduce_sum_
+from mech_nn_discovery_pde_torch.parallel.sharded_normal import (
+    make_sharded_flat_ops,
+    shard_layout,
+)
 from mech_nn_discovery_pde_torch.solvers import krylov
 
 
@@ -96,6 +114,7 @@ class MultigridSolver:
         config: Optional[PDEConfig] = None,
         device="cuda",
         mesh=None,
+        sp_axis: str = "sp",
     ):
         del n_iv_steps, gamma, alpha, double_ret
         self.bs = bs
@@ -142,15 +161,19 @@ class MultigridSolver:
             if mesh is not None:
                 raise ValueError("mg_smoother='chebyshev_fused' is incompatible with the "
                                  "sp-sharded solve (halo-extended fine coefficients)")
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh: the sp-sharded solve is not ported (it needs the JAX package's "
-                "parallel/ on several cards)")
         if evolution and cfg.mg_normal_op != "factored":
             # evolution equation rows read the previous time step, which the
             # assembled stencil (same-point entries) does not model; the
             # factored A^T (A x) does
             self.config = cfg = dataclasses.replace(cfg, mg_normal_op="factored")
+        if mesh is not None:
+            if cfg.mg_normal_op != "stencil":
+                raise ValueError("sp-sharded solve requires mg_normal_op='stencil' "
+                                 f"(got {cfg.mg_normal_op!r})")
+            if cfg.mg_block_smoother != "point":
+                raise ValueError("sp-sharded solve requires mg_block_smoother='point': 'line' "
+                                 "blocks span grid axis 0, which is the sharded axis (each "
+                                 "time-line would straddle shards)")
         self._factored_op = cfg.mg_normal_op == "factored"
         self._point = cfg.mg_block_smoother == "point"
         self.solve_dtype = _resolve_solve_dtype(cfg.mg_solve_dtype, self.dtype)
@@ -177,6 +200,19 @@ class MultigridSolver:
         # (make_desc rejects evolution systems)
         self.descs = None if self._factored_op else [make_desc(s.spec) for s in self.systems]
 
+        # the sp-sharded fine level: this rank's planes, the sharded apply
+        # and the group's sum
+        self._shard = None
+        if mesh is not None:
+            group = mesh.get_group(sp_axis)
+            self._shard = shard_layout(self.descs[0], group)
+            self._extend, self._sharded_apply = make_sharded_flat_ops(mesh, self.descs[0],
+                                                                      sp_axis)
+            self._sp_group = group
+            m = self.systems[0].var_set.n_mi
+            pts = self._shard.points
+            self._vars = slice(pts.start * m, pts.stop * m)  # this rank's run of a vector
+
         # transfer matrices between consecutive levels (per axis)
         self._down = [
             [interp_matrix(o, n) for o, n in zip(self.dim_list[k], self.dim_list[k + 1])]
@@ -199,6 +235,27 @@ class MultigridSolver:
                 )
             self._iv_down.append(mats_per_box)
         self._mat_cache: Dict[Any, List[torch.Tensor]] = {}
+
+    def _sharded(self, k: int) -> bool:
+        """Whether level k is split over the 'sp' ranks (the fine level
+        under `mesh`)."""
+        return k == 0 and self._shard is not None
+
+    def _sum(self, t: torch.Tensor) -> torch.Tensor:
+        """t summed over the 'sp' ranks, in place."""
+        return all_reduce_sum_(t, self._sp_group)
+
+    def _local_fields(self, coef: torch.Tensor) -> torch.Tensor:
+        """The rank's planes of fine-level stencil fields (bs, NC, N), with
+        their halo (exchanged here: once per hierarchy)."""
+        return self._extend(coef[:, :, self._shard.points].contiguous())
+
+    def _norm(self, k: int, t: torch.Tensor) -> torch.Tensor:
+        """2-norms over the last axis of level-k vectors (of the whole
+        vector, all ranks' runs, on the sharded level)."""
+        if self._sharded(k):
+            return torch.sqrt(self._sum((t * t).sum(dim=-1)))
+        return torch.linalg.vector_norm(t, dim=-1)
 
     def _mats(self, kind: str, k: int, dtype, box: int = -1) -> List[torch.Tensor]:
         """Transfer matrices as tensors on the solver's device (cached)."""
@@ -278,6 +335,8 @@ class MultigridSolver:
         v32 = values.to(self.pdtype)
         if self._point:
             B = sysk.assemble_point_blocks(v32)  # (bs, N, m, m)
+            if self._sharded(k):
+                B = B[:, self._shard.points]  # this rank's points
         else:
             B = sysk.assemble_line_blocks(v32)  # (bs, S, bw, bw)
         nb = B.shape[-1]
@@ -300,7 +359,8 @@ class MultigridSolver:
             lvl["sv"] = sysk.split_values(v32)
         else:
             coef = build_normal_coef(sysk.spec, self.descs[k], sysk.split_values(v32))
-            lvl["coef"] = coef.to(self.vdtype)
+            coef = coef.to(self.vdtype)
+            lvl["coef"] = self._local_fields(coef) if self._sharded(k) else coef
         lvl["lmax"] = self._estimate_lmax(k, lvl)
         steps = max(self.config.mg_smoother_steps_pre, self.config.mg_smoother_steps_post)
         lvl["sched"] = chebyshev_schedule(lvl["lmax"], self.config.mg_chebyshev_ratio, steps)
@@ -308,7 +368,11 @@ class MultigridSolver:
 
     def _normal_apply(self, k: int, lvl, v: torch.Tensor, **epilogue) -> torch.Tensor:
         """(AtA) v on level k with K1's epilogue (`stencil_apply`): kernel K1
-        on CUDA, or A^T (A v) through the structured operators."""
+        on CUDA (on the sharded level: on the rank's haloed slab, with the
+        output window on its planes), or A^T (A v) through the structured
+        operators."""
+        if self._sharded(k):
+            return self._sharded_apply(lvl["coef"], v, **epilogue)
         if self._factored_op:
             spec, sv = self.systems[k].spec, lvl["sv"]
             y = rmatvec_structured(spec, sv, matvec_structured(spec, sv, v))
@@ -324,16 +388,22 @@ class MultigridSolver:
     def _estimate_lmax(self, k: int, lvl, iters: int = 20) -> torch.Tensor:
         """Power iteration on B^-1 AtA (batched), biased high by the
         load-bearing mg_lmax_margin: Chebyshev amplifies any mode above the
-        assumed lmax explosively."""
+        assumed lmax explosively.  On the sharded level each rank iterates
+        on its run of the same start vector, with global norms and dot."""
         n = self.systems[k].num_vars
         bs = lvl["values"].shape[0]
         x = torch.sin(torch.arange(n, dtype=self.pdtype, device=self.device) + 1.0)
-        x = (x / torch.linalg.vector_norm(x)).expand(bs, n).contiguous()
+        if self._sharded(k):
+            x = x[self._vars]
+        x = (x / self._norm(k, x)).expand(bs, -1).contiguous()
         for _ in range(iters):
             y = self._block_apply(k, lvl, self._normal_apply(k, lvl, x))
-            x = y / torch.clamp(torch.linalg.vector_norm(y, dim=1, keepdim=True), min=1e-30)
+            x = y / torch.clamp(self._norm(k, y)[:, None], min=1e-30)
         y = self._block_apply(k, lvl, self._normal_apply(k, lvl, x))
-        return self.config.mg_lmax_margin * (x * y).sum(dim=1)
+        xy = (x * y).sum(dim=1)
+        if self._sharded(k):
+            xy = self._sum(xy)
+        return self.config.mg_lmax_margin * xy
 
     @staticmethod
     def _block_row_slices(sys: PDESystem):
@@ -381,7 +451,7 @@ class MultigridSolver:
         qc = [0.0] * 4
         for v in self._probes(k):
             vb = v.expand(bs, -1)
-            Av_f = sysf.matvec_packed(pf, self._prolong_vec(k - 1, vb))
+            Av_f = sysf.matvec_packed(pf, self._prolong_vec(k - 1, vb, full=True))
             Av_c = sysc.matvec_packed(pc, vb)
             for b in range(4):
                 qf[b] = qf[b] + (Av_f[:, rf[b][0] : rf[b][1]] ** 2).sum(dim=1)
@@ -463,18 +533,28 @@ class MultigridSolver:
         return (x, r) if want_residual else x
 
     def _restrict_vec(self, k: int, r: torch.Tensor) -> torch.Tensor:
+        """Level k -> k+1.  From the sharded level: the axis-0 matrix's
+        columns of the rank's planes, then the sum over the ranks."""
         bs = r.shape[0]
         n_mi = self.systems[k].var_set.n_mi
-        x = r.reshape((bs,) + self.dim_list[k] + (n_mi,))
-        x = apply_separable(x, self._mats("down", k, x.dtype), offset=1)
-        return x.reshape(bs, -1)
+        dims, mats = self.dim_list[k], self._mats("down", k, r.dtype)
+        if self._sharded(k):
+            dims = (self._shard.n_loc,) + dims[1:]
+            mats = [mats[0][:, self._shard.planes]] + mats[1:]
+        x = r.reshape((bs,) + dims + (n_mi,))
+        x = apply_separable(x, mats, offset=1).reshape(bs, -1)
+        return self._sum(x.contiguous()) if self._sharded(k) else x
 
-    def _prolong_vec(self, k: int, r: torch.Tensor) -> torch.Tensor:
-        """Level k+1 -> k."""
+    def _prolong_vec(self, k: int, r: torch.Tensor, full: bool = False) -> torch.Tensor:
+        """Level k+1 -> k; to the sharded level the rows of the rank's
+        planes, unless `full` (the coarse rescale's probes, on every rank)."""
         bs = r.shape[0]
         n_mi = self.systems[k + 1].var_set.n_mi
         x = r.reshape((bs,) + self.dim_list[k + 1] + (n_mi,))
-        x = apply_separable(x, self._mats("up", k, x.dtype), offset=1)
+        mats = self._mats("up", k, x.dtype)
+        if self._sharded(k) and not full:
+            mats = [mats[0][self._shard.planes]] + mats[1:]
+        x = apply_separable(x, mats, offset=1)
         return x.reshape(bs, -1)
 
     # ------------------------------------------------------------------
@@ -534,6 +614,8 @@ class MultigridSolver:
             sv = self.systems[0].split_values(fine_values.detach().to(self.solve_dtype))
             return lambda v: rmatvec_structured(spec, sv, matvec_structured(spec, sv, v))
         coef, desc0 = self._fine_coef(hier, fine_values), self.descs[0]
+        if self._shard is not None:
+            return lambda v: self._sharded_apply(coef, v)
         return lambda v: stencil_apply(desc0, coef, v)
 
     def _fine_coef(self, hier, fine_values) -> torch.Tensor:
@@ -546,19 +628,26 @@ class MultigridSolver:
         if "fine_coef" not in hier:
             sys0 = self.systems[0]
             sv = sys0.split_values(fine_values.detach().to(sdt))
-            hier["fine_coef"] = build_normal_coef(sys0.spec, self.descs[0], sv)
+            coef = build_normal_coef(sys0.spec, self.descs[0], sv)
+            hier["fine_coef"] = self._local_fields(coef) if self._shard is not None else coef
         return hier["fine_coef"]
 
     @torch.no_grad()
     def solve_normal(self, fine_values, rhs_vec, hier, back: bool = False):
         """Solve AtA x = At rhs (forward) or AtA dz = g (backward, rhs_vec
-        already in variable space).  Returns (x, iters, rnorm)."""
+        already in variable space).  Returns (x, iters, rnorm).  Sharded:
+        each rank solves on its run of the right-hand side, the dots and
+        norms summed over the ranks, and gathers x; every rank returns the
+        same global x, iters and rnorm."""
         cfg = self.config
         sys0 = self.systems[0]
         restart = cfg.mg_fgmres_restarts_backward if back else cfg.mg_fgmres_restarts_forward
         maxiter = cfg.mg_fgmres_max_iter_backward if back else cfg.mg_fgmres_max_iter_forward
         atb = rhs_vec if back else sys0.rmatvec_s(fine_values, rhs_vec)
         out_dtype = atb.dtype
+        reduce = None
+        if self._shard is not None:
+            atb, reduce = atb[:, self._vars].contiguous(), self._sum
         pmv = None
         if cfg.mg_fused_matvec:
             pmv = lambda r: self.precondition_with_Az(hier, r, back=back)
@@ -571,8 +660,12 @@ class MultigridSolver:
             atol=cfg.mg_fgmres_tol,
             tol=cfg.mg_fgmres_tol,
             precond_matvec=pmv,
+            reduce=reduce,
         )
-        return res.x.to(out_dtype), res.iters, res.rnorm.to(out_dtype)
+        x = res.x
+        if self._shard is not None:
+            x = all_gather_cat(x, self._sp_group, dim=1)
+        return x.to(out_dtype), res.iters, res.rnorm.to(out_dtype)
 
 
 class MultigridNormalSolver:

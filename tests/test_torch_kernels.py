@@ -118,6 +118,35 @@ def test_k1_epilogue_semantics():
     assert torch.equal(xz, x)
 
 
+@pytest.mark.parametrize("window", [(0, 63), (9, 36), (27, 36)])
+def test_k1_window(window):
+    """An output window (p0, n) gives the whole-grid apply's points p0 ..
+    p0+n-1 (reads still over the whole grid), with the epilogue on
+    window-sized operands (xout = xin + x's window); a run off the grid
+    raises.  The K1 geometry for a window: 16-byte loads only where the
+    grid's size and the window's start are multiples of the vector."""
+    dims = (7, 9)
+    tsys = TorchSystem.build(dims, order=2, init_index_mi_list=IVS[2])
+    rng = np.random.default_rng(4)
+    tv = torch.tensor(rng.standard_normal((2, tsys.n_entries)))
+    x = torch.tensor(rng.standard_normal((2, tsys.num_vars)))
+    desc = tns.make_desc(tsys.spec)
+    coef = tns.build_normal_coef(tsys.spec, desc, tsys.split_values(tv))
+    p0, n = window
+    m = desc.n_mi
+    win = slice(p0 * m, (p0 + n) * m)
+    full = tns.stencil_apply(desc, coef, x)
+    assert torch.equal(tns.stencil_apply(desc, coef, x, window=window), full[:, win])
+    b, x0 = (torch.tensor(rng.standard_normal((2, n * m))) for _ in range(2))
+    xo = x0.clone()
+    r = tns.stencil_apply(desc, coef, x, rin=b, xin=xo, xout=xo, window=window)
+    assert torch.equal(r, b - full[:, win]) and torch.equal(xo, x0 + x[:, win])
+    with pytest.raises(ValueError, match="window"):
+        tns.stencil_apply(desc, coef, x, window=(p0 + 1, 63))
+    assert tns.stencil_geometry(1 << 16, 32, 4, 132, aligned=True).P == 4
+    assert tns.stencil_geometry(1 << 16, 32, 4, 132, aligned=False).P == 1
+
+
 LAYOUT_DIMS = {1: (10,), 2: (7, 9), 3: (6, 7, 8)}
 
 

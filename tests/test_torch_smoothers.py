@@ -224,7 +224,8 @@ def test_option_errors_match_jax(opts):
 def test_evolution_falls_back_and_mesh_raises():
     """Evolution takes the factored operator (a config copy; the caller's is
     untouched) and builds no stencil descriptor; chebyshev_fused refuses it;
-    `mesh` is not ported."""
+    `mesh` refuses the line blocks (the JAX package's ValueError) before it
+    reads the mesh."""
     cfg = TorchConfig()
     tl = TorchLayer(device="cpu", evolution=True, **solver_kw(config=cfg))
     assert tl.mg_solver.config.mg_normal_op == "factored" and cfg.mg_normal_op == "stencil"
@@ -234,7 +235,7 @@ def test_evolution_falls_back_and_mesh_raises():
     with pytest.raises(ValueError, match="chebyshev_fused"):
         TorchLayer(device="cpu", evolution=True,
                    **solver_kw(config=TorchConfig(mg_smoother="chebyshev_fused")))
-    with pytest.raises(NotImplementedError, match="parallel/"):
+    with pytest.raises(ValueError, match="mg_block_smoother='point'"):
         TorchLayer(device="cpu", mesh=object(), **solver_kw(config=TorchConfig()))
     with pytest.raises(ValueError, match="mg_block_smoother"):
         TorchLayer(device="cpu", **solver_kw(config=TorchConfig(mg_block_smoother="plane")))
