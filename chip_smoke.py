@@ -9,8 +9,9 @@ plain PyTorch version:
   1. device: requires CUDA; prints the card's name and power limit;
      builds the kernels (one nvcc per source, in parallel) and reads
      ptxas's report: every K1 instantiation (3 stored types x 6 layouts x
-     2 point widths) and the six line_block.cu kernels must use no stack
-     frame and spill nothing;
+     2 point widths), the six line_block.cu kernels and the 15 point_block.cu
+     ones (K2 f32 and bf16, K3; bw 2, 3, 4, 5, 7) must use no stack frame
+     and spill nothing;
   2. kernels vs plain at the GL fine-level and level-1 shapes (bs 32):
      K1 f32/f64 and its epilogue (f64 and bf16 fields also in place), K2
      and its epilogue, 4-step smoothing
@@ -88,10 +89,20 @@ plain PyTorch version:
      the factored normal operator A^T (A x) (mg_normal_op='factored'; no
      K1, K2 for the line blocks; forward rel_rnorm within 2x of phase 3's),
      evolution rows (evolution=True, which falls back to it; K2), point
-     blocks (mg_block_smoother='point': K1, and K2 at nt 1, bw 7; then 16b:
-     K2 at the fine level's point blocks, bs 32 x 8192 blocks of 7 x 7,
-     against its plain version, timed beside its bound and one bmm) and
-     the Jacobi smoother (mg_smoother='jacobi': K1 and K2);
+     blocks (mg_block_smoother='point': K1, and K2's point-block kernel at
+     nt 1, bw 7; then the point step on that kernel and on line_block.cu's
+     streamed K2 at nt 1, the design before it, in turns: rel_rnorm within
+     1 %, step medians, K2's device ms per step from a profiled step each;
+     then 16b: K2 f32, K2 bf16 and K3's point-block kernels on the blocks of
+     point hierarchies stored in 'f32', 'bf16' and 'bf16_factored' (the
+     latter two each driven by one forward, whose launches are their
+     kernels' path), at the fine level (bs 32 x 8192 blocks of 7 x 7) and
+     level 1, against their plain versions with and without the epilogue,
+     timed alone and back to back beside their bounds, their plain versions,
+     one bmm (two for K3) and line_block.cu's kernel; then at bw 2, 3, 4, 5
+     and 7 at item counts no tile divides and below one tile, and on
+     operands off 16-byte alignment) and the Jacobi smoother
+     (mg_smoother='jacobi': K1 and K2);
  16c. parallel/ (after 16b): K1 with its output window on the slab rank 0
      of sp 2 holds at the GL fine level (12 planes, the window on 4) against
      its plain version, the whole-grid K1's rows and a CSR product over the
@@ -130,8 +141,11 @@ plain PyTorch version:
      its GL-shape ones beside them ("gl_shapes"); K1 and K2 carry their
      transport-shape numbers ("transport") and their launches in phase 12
      ("launches_gl_nn_transform"); K2, K2 bf16 and K3 carry their wide-block
-     rows ("wide_blocks", each with its bmm times, "library_ms*"), K2 its
-     point-block row ("point_blocks", phase 16b) and K1 its windowed row
+     rows ("wide_blocks", each with its bmm times, "library_ms*"), the
+     point-block kernels their phase-16b numbers (with "*_level1", the
+     device's time per launch from a CUDA graph of 20 launches,
+     "device_ms", and line_block.cu's kernel's times, "parent_*"; K2's the
+     point step by route, "point_step") and K1 its windowed row
      ("window", phase 16c), and every kernel its launches on the paths of
      phases 14-18 ("launches_new_paths"; the sharded step's and the NCCL
      forward's summed over their ranks, K1's windowed launches apart); then
@@ -288,6 +302,27 @@ def check_line_block_ptxas(text: str) -> None:
             f"{stack} B stack frame, {st} B spill stores, {ld} B spill loads")
     if len(rows) != 6 or any(any(r[2:]) for r in rows):
         raise AssertionError(f"line_block ptxas: {len(rows)} kernels of 6, rows {rows}")
+
+
+POINT_MANGLED = re.compile(r"(k[23])_point_block_applyI(f|13__nv_bfloat16)?Li(\d)E")
+
+
+def check_point_block_ptxas(text: str) -> None:
+    """The 15 point_block.cu kernels (K2 f32 and bf16, K3; bw 2, 3, 4, 5, 7)
+    keep everything in registers: no stack frame, no spills."""
+    seen = {}
+    for name, regs, stack, st, ld in ptxas_report(text):
+        m = POINT_MANGLED.search(name)
+        if m:
+            kern = f"{m.group(1)}_point_block_apply{' bf16' if m.group(2) != 'f' else ''}"
+            seen[(kern, int(m.group(3)))] = (regs, stack, st, ld)
+    for (kern, bw), (regs, stack, st, ld) in sorted(seen.items()):
+        log(f"  ptxas {kern} bw {bw}: {regs} registers, {stack} B stack frame, {st} B spill "
+            f"stores, {ld} B spill loads")
+    bad = [k for k, v in seen.items() if any(v[1:])]
+    if len(seen) != 15 or bad:
+        raise AssertionError(f"point_block ptxas: {len(seen)} kernels of 15, with stack or "
+                             f"spills: {bad}")
 
 
 def check_k1_epilogues(label, desc, coef, x, b, tol):
@@ -772,7 +807,8 @@ def kernel_counts(prof):
     (microseconds: the union of the work's intervals, so overlapping
     streams count once) and device time by name."""
     names = {"k1_stencil_apply": 0, "k2_line_block_apply": 0,
-             "k3_factored_line_block_apply": 0}
+             "k3_factored_line_block_apply": 0, "k2_point_block_apply": 0,
+             "k3_point_block_apply": 0}
     by_name = {}
     spans = []
     for e in device_events(prof):
@@ -951,13 +987,14 @@ def phase_option(seed, dev, name, evolution, opts, stencil_rel, bs=32, dims=(8, 
         rels.append(float(stats["rel_rnorm"].max()))
     counts = dict(_cuda.LAUNCHES)
     k1 = sum(c for n, c in counts.items() if n.startswith("k1_"))
-    k2 = counts.get("k2_line_block_apply", 0)
+    block = "k2_point_block_apply" if name == "point" else "k2_line_block_apply"
+    k2 = counts.get(block, 0)
     log(f"{name} layer step: median {statistics.median(ts):.4f} s (min {min(ts):.4f}, max "
         f"{max(ts):.4f}) over 3; forward FGMRES iters {sorted(its)}, rel_rnorm max "
         f"{max(rels):.4e}; launches in the 3 steps {counts} (K1 {k1}, K2 {k2})")
-    stray = [n for n in counts if n.startswith(("k2_", "k3_")) and n != "k2_line_block_apply"]
+    stray = [n for n in counts if n.startswith(("k2_", "k3_")) and n != block]
     if k2 == 0 or stray:
-        raise AssertionError(f"{name} layer step: block applies {counts}, want K2 only")
+        raise AssertionError(f"{name} layer step: block applies {counts}, want {block} only")
     if name in ("factored", "evolution") and k1:
         raise AssertionError(f"{name} layer step launched K1 {k1} times (the factored operator "
                              "has no stencil fields)")
@@ -1329,8 +1366,8 @@ def phase_parallel(seed, dev, smi):
             counts[n] = counts.get(n, 0) + c
         for n, c in res["window_counts"].items():
             counts[f"{n}_windowed"] = counts.get(f"{n}_windowed", 0) + c
-    want(counts.get("k1_stencil_apply_windowed") and counts.get("k2_line_block_apply"),
-         f"sharded step launched no windowed K1 or no K2: {counts}")
+    want(counts.get("k1_stencil_apply_windowed") and counts.get("k2_point_block_apply"),
+         f"sharded step launched no windowed K1 or no K2 point-block kernel: {counts}")
     # (c) dp 2 against one process
     loss1, params1, dt1, rel1 = dp_ref
     e_pert = params_err(dp_pert[1], params1)
@@ -1433,49 +1470,261 @@ def profile_v_cycle(layer, c0, r0, i0, steps):
         log(f"  {us / 1e3:10.3f} ms  x{c:6d}  {kname[:90]}")
 
 
-def phase_point_k2(seed, layer, dev):
-    """Phase 16b: K2 at the point blocks of the point layer's fine level
-    (bs 32, S 8192 blocks of nt 1, bw 7) against block_apply_plain, with the
-    Chebyshev epilogue (1e-5); timed alone and back to back beside its bound
-    and one torch.bmm.  Returns the kernels-line row."""
-    from mech_nn_discovery_pde_torch.ops import _cuda
+@contextlib.contextmanager
+def line_route():
+    """Block applies at nt 1 launch line_block.cu's streamed kernels, as every
+    point-block launch did before csrc/point_block.cu (their source is
+    unchanged since): the earlier design, timed beside the point kernels in
+    the same process."""
     from mech_nn_discovery_pde_torch.ops import fused_smoother as fs
 
-    bs, dims = layer.bs, layer.coord_dims
-    (c0, r0, i0), steps = bench_inputs(layer, bs, dims, seed, dev)
-    with torch.no_grad():
-        _, _, hier = layer._prepare(c0, r0, i0, steps)
-    binv = hier["levels"][0]["binv"]
-    del hier
-    _, S, bw, _ = binv.shape
-    if (bw, layer.mg_solver._block_nt(0)) != (layer.n_orders, 1):
-        raise AssertionError(f"point layer: blocks of width {bw}, want nt 1, bw n_mi")
-    g = torch.Generator(device=dev).manual_seed(seed + 5)
-    x = torch.randn((bs, S * bw), generator=g, device=dev)
-    b = torch.randn((bs, S * bw), generator=g, device=dev)
-    c1 = torch.rand((bs,), generator=g, device=dev)
-    c2 = torch.rand((bs,), generator=g, device=dev)
-    geo = fs.line_block_geometry(bs, S, bw, 4, _cuda.sm_count(dev))
-    log(f"  K2 point blocks (bs {bs}, S {S}, bw {bw}, nt 1): {geo}")
-    t_k, t_p = fs.block_apply(binv, x, 1), fs.block_apply_plain(binv, x, 1)
-    check("K2 point blocks apply", rel_err(t_k, t_p), 1e-5)
+    point_path = fs.point_path
+    fs.point_path = lambda nt, bw: False
+    try:
+        yield
+    finally:
+        fs.point_path = point_path
+
+
+ROUTES = {"line": line_route, "point": contextlib.nullcontext}
+ROUTE_K2 = {"line": "k2_line_block_apply", "point": "k2_point_block_apply"}
+
+
+def phase_point_route(seed, layer, dev):
+    """Phase 16, continued: the point step (phase 16's layer, inputs and
+    budget) with its point blocks on the point-block kernel and, as before
+    it, on line_block.cu's streamed K2 at nt 1 (`line_route`).  One step on
+    each route at the unperturbed inputs gives its forward rel_rnorm (the
+    point route's within 1 % of the line route's: the kernels sum in another
+    order) and warms it up; then 2 timed steps each in turns line, point,
+    point, line; then one profiled step each: K2's device ms per step, its
+    launches, the device's busy time.  Returns the numbers by route."""
+    from torch.profiler import ProfilerActivity, profile
+
+    (c0, r0, i0), steps = bench_inputs(layer, layer.bs, layer.coord_dims, seed, dev)
+
+    def step(c):
+        c = c.clone().requires_grad_(True)
+        r = r0.clone().requires_grad_(True)
+        i = i0.clone().requires_grad_(True)
+        u0, _, stats = layer(c, r, i, steps)
+        (u0**2).sum().backward()
+        return stats
+
+    out = {name: {"step_s": []} for name in ROUTES}
+    for name, route in ROUTES.items():
+        with route():
+            out[name]["rel_rnorm"] = float(step(c0)["rel_rnorm"].max())
+    for k, name in enumerate(("line", "point", "point", "line")):
+        with ROUTES[name]():
+            for j in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(c0 + 1e-6 * (2 * k + j + 1))
+                torch.cuda.synchronize()
+                out[name]["step_s"].append(time.perf_counter() - t0)
+    for name, route in ROUTES.items():
+        with route():
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                step(c0)
+                torch.cuda.synchronize()
+        _, busy_us, by_name = kernel_counts(prof)
+        k2 = [(us, c) for e, (us, c) in by_name.items() if ROUTE_K2[name] in e]
+        o = out[name]
+        o.update(step_s_median=statistics.median(o["step_s"]),
+                 k2_device_ms=sum(us for us, _ in k2) / 1e3, k2_launches=sum(c for _, c in k2),
+                 device_busy_s=busy_us / 1e6)
+        log(f"point step, block applies on {ROUTE_K2[name]}: median {o['step_s_median']:.4f} s "
+            f"over 4 ({', '.join(f'{t:.4f}' for t in o['step_s'])}), rel_rnorm max "
+            f"{o['rel_rnorm']:.4e}; profiled step: K2 {o['k2_device_ms']:.3f} device ms in "
+            f"{o['k2_launches']} launches, device busy {o['device_busy_s']:.4f} s")
+    ratio = out["point"]["rel_rnorm"] / out["line"]["rel_rnorm"]
+    log(f"point step rel_rnorm, point-block kernel over line kernel: {ratio:.5f}")
+    if not abs(ratio - 1) <= 0.01:
+        raise AssertionError(f"point step rel_rnorm {out['point']['rel_rnorm']:.4e} not within "
+                             f"1 % of the line kernel's {out['line']['rel_rnorm']:.4e}")
+    return out
+
+
+def point_kernels():
+    """The point-block kernels by storage mode: (kernels-line key, label,
+    apply, plain version, factored)."""
+    from mech_nn_discovery_pde_torch.ops import fused_smoother as fs
+
+    return {
+        "f32": ("k2_point", "K2 f32", fs.block_apply, fs.block_apply_plain, False),
+        "bf16": ("k2_point_bf16", "K2 bf16", fs.block_apply, fs.block_apply_plain, False),
+        "bf16_factored": ("k3_point", "K3", fs.factored_block_apply,
+                          fs.factored_block_apply_plain, True),
+    }
+
+
+def check_point_kernel(label, kern, plain, blocks, x, b, c1, c2):
+    """A point-block kernel (nt 1) against its plain version, plain apply
+    and with the Chebyshev epilogue in place (1e-5, the tolerance of K2 and
+    K3's checks).  Returns the apply's max-abs error and its result."""
+    t_k, t_p = kern(blocks, x, 1), plain(blocks, x, 1)
+    check(f"{label} apply", rel_err(t_k, t_p), 1e-5)
     d_k, d_p = b.clone(), b.clone()
-    fs.block_apply(binv, x, 1, d=d_k, c1=c1, c2=c2)
-    fs.block_apply_plain(binv, x, 1, d=d_p, c1=c1, c2=c2)
-    check("K2 point blocks Chebyshev epilogue", rel_err(d_k, d_p), 1e-5)
-    lib, to_vec = block_library_call(binv, x, 1, bw, False)
-    check("K2 point blocks bmm yardstick", rel_err(to_vec(lib()), t_k), 1e-5)
-    bnd, by = bound(binv.numel() * 4 + 4 * 2 * x.numel(), 2 * binv.numel())
-    row = dict(bw=bw, nt=1, S=S, max_abs_err=abs_err(t_k, t_p),
-               ms=time_ms(lambda: fs.block_apply(binv, x, 1, d=d_k)),
-               ms_back_to_back=time_ms_back_to_back(lambda: fs.block_apply(binv, x, 1, d=d_k)),
-               plain_ms=time_ms(lambda: fs.block_apply_plain(binv, x, 1)),
-               bound_ms=bnd, bound_by=by, library_ms=time_ms(lib),
-               library_ms_back_to_back=time_ms_back_to_back(lib))
-    log(f"  K2 point blocks: {row['ms']:.4f} ms, back to back {row['ms_back_to_back']:.4f} ms "
-        f"(bound {bnd:.4f}, {by}; plain {row['plain_ms']:.4f}; bmm {row['library_ms']:.4f}, "
-        f"back to back {row['library_ms_back_to_back']:.4f})")
+    kern(blocks, x, 1, d=d_k, c1=c1, c2=c2)
+    plain(blocks, x, 1, d=d_p, c1=c1, c2=c2)
+    check(f"{label} Chebyshev epilogue", rel_err(d_k, d_p), 1e-5)
+    return abs_err(t_k, t_p), t_k
+
+
+def graph_ms(run, n=20):
+    """Milliseconds per call of n back-to-back calls of run captured in one
+    CUDA graph and replayed (median of 10 replays): the device's time per
+    launch without the host's, which is the slower below about 0.02 ms."""
+    run()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            run()
+    torch.cuda.synchronize()
+    return time_ms(graph.replay, n=10, warmup=2) / n
+
+
+def time_point_kernel(label, kern, plain, blocks, x, t_k, factored):
+    """A point-block kernel's times at one shape: alone, back to back and on
+    the device alone (`graph_ms`), beside line_block.cu's streamed kernel
+    at nt 1 in turns (line, point, point, line; back to back the mean of
+    each pair), its plain version, its bmm yardstick (two for K3; checked
+    against the kernel) and its bound."""
+    bw = blocks.shape[-1]
+    run = lambda: kern(blocks, x, 1, d=t_k)  # noqa: E731
+    row, b2b = {}, {"line": [], "point": []}
+    for name in ("line", "point", "point", "line"):
+        pre = "parent_" if name == "line" else ""
+        with ROUTES[name]():
+            if f"{pre}ms" not in row:
+                row[f"{pre}ms"] = time_ms(run)
+                row[f"{pre}device_ms"] = graph_ms(run)
+            b2b[name].append(time_ms_back_to_back(run))
+    row["ms_back_to_back"] = statistics.mean(b2b["point"])
+    row["parent_ms_back_to_back"] = statistics.mean(b2b["line"])
+    row["plain_ms"] = time_ms(lambda: plain(blocks, x, 1))
+    lib, to_vec = block_library_call(blocks, x, 1, bw, factored)
+    check(f"{label} {'two-bmm' if factored else 'bmm'} yardstick", rel_err(to_vec(lib()), t_k),
+          1e-5)
+    row["library_ms"] = time_ms(lib)
+    row["library_ms_back_to_back"] = time_ms_back_to_back(lib)
+    row["bound_ms"], row["bound_by"] = bound(blocks.numel() * blocks.element_size()
+                                             + 4 * 2 * x.numel(),
+                                             (4 if factored else 2) * blocks.numel())
+    log(f"  {label}: {row['ms']:.4f} ms, back to back {row['ms_back_to_back']:.4f} ms "
+        f"({b2b['point'][0]:.4f}, {b2b['point'][1]:.4f}), device {row['device_ms']:.4f} ms; "
+        f"bound {row['bound_ms']:.4f} ({row['bound_by']}; "
+        f"{row['bound_ms'] / row['ms_back_to_back']:.1%} of it back to back, "
+        f"{row['bound_ms'] / row['device_ms']:.1%} on the device); line_block.cu's kernel "
+        f"{row['parent_ms']:.4f} ms, back to back {row['parent_ms_back_to_back']:.4f} "
+        f"({b2b['line'][0]:.4f}, {b2b['line'][1]:.4f}), device {row['parent_device_ms']:.4f}; "
+        f"plain {row['plain_ms']:.4f}; {'two bmm' if factored else 'bmm'} "
+        f"{row['library_ms']:.4f}, back to back {row['library_ms_back_to_back']:.4f}")
     return row
+
+
+def point_forward(layer, mode, seed, dev):
+    """One forward of a point layer with `mode` preconditioner storage, the
+    entry point its users call, with the launch counts cleared just before
+    and read just after: the launches of that storage mode's point-block
+    kernel.  u0 must be finite, except under 'bf16' (quality-fatal at GL
+    scale; rel_rnorm printed with no bar)."""
+    from mech_nn_discovery_pde_torch.ops import _cuda
+
+    (c0, r0, i0), steps = bench_inputs(layer, layer.bs, layer.coord_dims, seed, dev)
+    torch.cuda.synchronize()
+    _cuda.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        u0, _, stats = layer(c0, r0, i0, steps)
+    torch.cuda.synchronize()
+    counts = dict(_cuda.LAUNCHES)
+    finite = bool(torch.isfinite(u0).all())
+    log(f"point forward, {mode} storage: {time.perf_counter() - t0:.3f} s, launches {counts}, "
+        f"rel_rnorm max {float(stats['rel_rnorm'].max()):.4e}, u0 finite: {finite}")
+    if not finite and mode != "bf16":
+        raise AssertionError(f"point forward, {mode} storage: non-finite u0")
+    return counts
+
+
+# (bs, S, bw): every point width at an item count that no tile divides, and
+# fewer items than one tile
+POINT_WIDTH_CASES = ((3, 677, 2), (3, 677, 3), (2, 1001, 4), (2, 1001, 5), (3, 1111, 7),
+                     (1, 5, 7))
+
+
+def phase_point_blocks(seed, layer, dev):
+    """Phase 16b: the point-block kernels K2 f32, K2 bf16 and K3 (nt 1,
+    bw 7) on the blocks of point hierarchies (the f32 one of phase 16's
+    layer; 'bf16' and 'bf16_factored' layers built here, each driven by one
+    forward whose launch counts are its kernel's path), at the fine level
+    (bs 32 x 8192 blocks) and level 1 (2048): each against its plain
+    version with and without the epilogue, and timed (`time_point_kernel`).
+    Then every kernel at bw 2, 3, 4, 5 and 7 on random SPD blocks at item
+    counts no tile divides and below one tile, and at bw 7 on operands at
+    offsets that are not 16-byte aligned (the kernels' own load path for
+    every tile).  Returns (the kernels-line rows by key, the launch counts
+    of the bf16 and bf16_factored forwards)."""
+    rows, counts = {}, {}
+    g = torch.Generator(device=dev).manual_seed(seed + 5)
+    for mode, (key, label, kern, plain, factored) in point_kernels().items():
+        lay = layer
+        if mode != "f32":
+            lay = b30c4rm_layer(dev, mode, layer.bs, layer.coord_dims, mg_block_smoother="point")
+            counts[mode] = point_forward(lay, mode, seed, dev)
+        (c0, r0, i0), steps = bench_inputs(lay, lay.bs, lay.coord_dims, seed, dev)
+        with torch.no_grad():
+            _, _, hier = lay._prepare(c0, r0, i0, steps)
+        for k in (0, 1):
+            blocks = hier["levels"][k]["binv"]
+            bs, S, bw, _ = blocks.shape
+            want = torch.bfloat16 if mode != "f32" else torch.float32
+            if blocks.dtype != want or (bw, lay.mg_solver._block_nt(k)) != (lay.n_orders, 1):
+                raise AssertionError(f"{mode} point hierarchy level {k}: blocks {blocks.dtype} "
+                                     f"of width {bw}, want {want}, nt 1, bw n_mi")
+            if factored and int((blocks.tril(-1) != 0).sum()):
+                raise AssertionError(f"stored point W at level {k} is not upper-triangular")
+            x = torch.randn((bs, S * bw), generator=g, device=dev)
+            b = torch.randn((bs, S * bw), generator=g, device=dev)
+            c1 = torch.rand((bs,), generator=g, device=dev)
+            c2 = torch.rand((bs,), generator=g, device=dev)
+            lbl = f"{label} point blocks (level {k}: bs {bs}, S {S}, bw {bw})"
+            err, t_k = check_point_kernel(lbl, kern, plain, blocks, x, b, c1, c2)
+            row = time_point_kernel(lbl, kern, plain, blocks, x, t_k, factored)
+            if k == 0:
+                rows[key] = dict(max_abs_err=err, S=S, bw=bw, **row)
+            else:
+                rows[key].update({f"{n}_level1": v for n, v in row.items() if n != "bound_by"})
+            del x, b, t_k
+        del hier, lay
+        torch.cuda.empty_cache()
+    for bs, S, bw in POINT_WIDTH_CASES:
+        binv, W = spd_blocks(bs, S, bw, g, dev)
+        x = torch.randn((bs, S * bw), generator=g, device=dev)
+        b = torch.randn((bs, S * bw), generator=g, device=dev)
+        c1 = torch.rand((bs,), generator=g, device=dev)
+        c2 = torch.rand((bs,), generator=g, device=dev)
+        for mode, (_, label, kern, plain, _) in point_kernels().items():
+            blocks = {"f32": binv, "bf16": binv.to(torch.bfloat16), "bf16_factored": W}[mode]
+            check_point_kernel(f"{label} bw {bw}, {bs * S} items", kern, plain, blocks, x, b,
+                               c1, c2)
+    # bs 1: a slice that drops the first item is contiguous and 196 B (28 B
+    # for r) past a 16-byte boundary
+    binv, W = spd_blocks(1, 1001, 7, g, dev)
+    x = torch.randn((1, 1001 * 7), generator=g, device=dev)[:, 7:]
+    b = torch.randn((1, 1000 * 7), generator=g, device=dev)
+    c1, c2 = torch.rand((1,), generator=g, device=dev), torch.rand((1,), generator=g, device=dev)
+    for mode, (_, label, kern, plain, _) in point_kernels().items():
+        blocks = {"f32": binv, "bf16": binv.to(torch.bfloat16), "bf16_factored": W}[mode][:, 1:]
+        if blocks.data_ptr() % 16 == 0 or not blocks.is_contiguous() or not x.is_contiguous():
+            raise AssertionError("unaligned point case: operands aligned or not contiguous")
+        check_point_kernel(f"{label} bw 7, operands off 16-byte alignment", kern, plain, blocks,
+                           x, b, c1, c2)
+    torch.cuda.synchronize()
+    return rows, counts
 
 
 def phase_krylov(layer, hier, values, rhs_vec, dev, iters=60):
@@ -2168,6 +2417,8 @@ def main() -> int:
         check_line_block_ptxas(outs["line_block"])
     if "stencil_apply" in outs:
         check_k1_ptxas(outs["stencil_apply"])
+    if "point_block" in outs:
+        check_point_block_ptxas(outs["point_block"])
 
     # phase 2 needs a real hierarchy: build it with the layer of phase 3
     from mech_nn_discovery_pde_torch.config import PDEConfig
@@ -2229,7 +2480,10 @@ def main() -> int:
         new_counts[name], opt_layer = phase_option(args.seed, dev, name, evolution, opts,
                                                    stencil_rel)
         if name == "point":
-            report["k2"]["point_blocks"] = phase_point_k2(args.seed, opt_layer, dev)
+            point_step = phase_point_route(args.seed, opt_layer, dev)
+            point_rows, point_counts = phase_point_blocks(args.seed, opt_layer, dev)
+            report.update(point_rows)
+            report["k2_point"]["point_step"] = point_step
         del opt_layer
         torch.cuda.empty_cache()
         if name == "point":
@@ -2241,6 +2495,7 @@ def main() -> int:
 
     stencil = "mech_nn_discovery_pde_torch/csrc/stencil_apply.cu"
     line = "mech_nn_discovery_pde_torch/csrc/line_block.cu"
+    point = "mech_nn_discovery_pde_torch/csrc/point_block.cu"
     tpu_fs = "mech_nn_discovery_pde_tpu/ops/fused_smoother.py"
     trainer, step_w, fwd_b = "GL trainer, 3 steps", "b30c4rmw layer step", "b30c4rm bf16 forward"
     transport = "transport multigrid example, 4 windows"
@@ -2253,6 +2508,12 @@ def main() -> int:
         ("k3_factored_line_block_apply", line, f"{tpu_fs}:104", step_w, counts_w, "k3"),
         ("k1_stencil_apply_bf16", stencil, f"{tpu_fs}:51", fwd_b, counts_b, "k1_bf16"),
         ("k2_line_block_apply_bf16", line, f"{tpu_fs}:87", fwd_b, counts_b, "k2_bf16"),
+        ("k2_point_block_apply", point, f"{tpu_fs}:128", "point layer step, 3 steps",
+         new_counts["point"], "k2_point"),
+        ("k2_point_block_apply_bf16", point, f"{tpu_fs}:87", "point forward, bf16 storage",
+         point_counts["bf16"], "k2_point_bf16"),
+        ("k3_point_block_apply", point, f"{tpu_fs}:104", "point forward, bf16_factored storage",
+         point_counts["bf16_factored"], "k3_point"),
     ]
     # K2 and K3 also carry their wide-block numbers (phase 2d)
     wide_rows = {}

@@ -24,6 +24,7 @@ kernels (ops/normal_stencil.py, ops/fused_smoother.py), so
 do `mg_smoother="chebyshev_fused"` and `"chebyshev"`.
 """
 
+import os
 from dataclasses import dataclass
 
 
@@ -97,6 +98,18 @@ class PDEConfig:
     check_finite: bool = False
     # return forward-solve stats as the layer's third output (u0, u, stats)
     return_solve_stats: bool = False
+
+    @property
+    def ginzburg_dir(self) -> str:
+        return os.path.join(self.data_root, "ginzburg")
+
+    @property
+    def rheology_dir(self) -> str:
+        return os.path.join(self.data_root, "kamani")
+
+    @property
+    def burgers_dir(self) -> str:
+        return os.path.join(self.data_root, "burgers")
 
 
 # Module-level default used by layers when no config is passed explicitly.

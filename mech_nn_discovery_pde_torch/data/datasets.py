@@ -1,7 +1,7 @@
 """Patch-slicing dataset + a simple batch loader (numpy).
 
 Copy of the JAX package's data/datasets.py: `BurgersDataset`,
-`KamaniDataset`, `ReactDiffDataset` and `PatchLoader`, with the data-fault
+`KamaniDataset`, `ReactDiffDataset`, `SineDataset` and `PatchLoader`, with the data-fault
 knobs (percent Gaussian noise, frame dropping with a loss
 mask) seeded as there, so both packages make the same arrays.
 """
@@ -143,6 +143,19 @@ class ReactDiffDataset:
                 tuple(self.solver_dim),
             ),
         )
+
+
+class SineDataset:
+    """Single damped-sine surface (reference fit/sine_pde_dense.py:18-35)."""
+
+    def __init__(self, coord_dims=(32, 32), end: float = 1.0):
+        self.y = generate.damped_sine(coord_dims, end)
+
+    def __len__(self):
+        return 1
+
+    def __getitem__(self, idx):
+        return self.y
 
 
 class PatchLoader:

@@ -34,7 +34,8 @@ NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
 
 # library name -> source file; each library exports <kernel>_<dtype> launchers
 # (<dtype> names the stored operand; bf16 launchers take f32 vectors)
-SOURCES = {"stencil_apply": "stencil_apply.cu", "line_block": "line_block.cu"}
+SOURCES = {"stencil_apply": "stencil_apply.cu", "line_block": "line_block.cu",
+           "point_block": "point_block.cu"}
 
 LAUNCHES: collections.Counter = collections.Counter()
 WINDOW_LAUNCHES: collections.Counter = collections.Counter()
@@ -59,8 +60,16 @@ _SIGNATURES = {
         "k2_line_block_apply_bf16": [_P] * 5 + [_I] * 9 + [_P],
         "k3_factored_line_block_apply_bf16": [_P] * 5 + [_I] * 9 + [_P],
     },
+    # operands, (bw, S, bs), the launch geometry (ctas, tile, stages,
+    # smem_bytes, bulk; ops/fused_smoother.point_block_geometry), stream
+    "point_block": {
+        "k2_point_block_apply_f32": [_P] * 5 + [_I] * 8 + [_P],
+        "k2_point_block_apply_bf16": [_P] * 5 + [_I] * 8 + [_P],
+        "k3_point_block_apply_bf16": [_P] * 5 + [_I] * 8 + [_P],
+    },
 }
-_ERROR_FN = {"stencil_apply": "k1_error_string", "line_block": "k2_error_string"}
+_ERROR_FN = {"stencil_apply": "k1_error_string", "line_block": "k2_error_string",
+             "point_block": "point_block_error_string"}
 
 
 def nvcc_path() -> str:

@@ -141,6 +141,13 @@ class ConstraintSpec:
             np.int32
         )
 
+    @property
+    def values_static_all(self) -> np.ndarray:
+        """Static values per entry, in value-vector order."""
+        return np.concatenate(
+            [self.eq_values_static, self.init_values_static, self.deriv_values_static]
+        )
+
     def describe(self) -> str:
         return (
             f"ConstraintSpec(dims={self.coord_dims}, order={self.order}, "
@@ -385,3 +392,45 @@ def build_constraint_spec(
         n_central_entries=n_central_entries,
     )
 
+
+# ---------------------------------------------------------------------------
+# human-readable constraint rendering (reference repr_eq/repr_taylor :690-744)
+# ---------------------------------------------------------------------------
+
+
+def render_rows(
+    spec: ConstraintSpec,
+    block: str,
+    values: Optional[np.ndarray] = None,
+    rhs: Optional[np.ndarray] = None,
+    max_rows: Optional[int] = None,
+) -> str:
+    """Render constraints of one block ('equation'|'initial'|'derivative') as
+    strings like "0.0833*u(0, 1) + ... =0" for eyeball/golden verification."""
+    vs = spec.var_set
+    rows, cols, static_vals = {
+        "equation": (spec.eq_rows, spec.eq_cols, spec.eq_values_static),
+        "initial": (spec.init_rows, spec.init_cols, spec.init_values_static),
+        "derivative": (spec.deriv_rows, spec.deriv_cols, spec.deriv_values_static),
+    }[block]
+    values = static_vals if values is None else values
+    gi = vs.grid_indices()
+    out = []
+    n_rows = int(rows[-1]) + 1 if rows.size else 0
+    if max_rows is not None:
+        n_rows = min(n_rows, max_rows)
+    # entries are grouped by row already (rows nondecreasing)
+    start = 0
+    for r in range(n_rows):
+        terms = []
+        while start < rows.size and rows[start] == r:
+            c = int(cols[start])
+            point, mi = divmod(c, vs.n_mi)
+            label = f"{vs.mi_repr[mi]}{tuple(int(x) for x in gi[point])}"
+            terms.append(f"{values[start]}*{label}")
+            start += 1
+        rhs_val = 0.0 if rhs is None else rhs[r]
+        if block == "equation" and rhs is None:
+            rhs_val = PH
+        out.append("+ ".join(terms) + f" ={rhs_val}")
+    return "\n".join(out)

@@ -34,8 +34,11 @@ the JAX package's weighted block-Jacobi branch (`_smooth`, mg_smoother=
 'jacobi'): x <- x + w B^-1 (b - A x), the update in K2's epilogue.
 
 Point blocks (mg_block_smoother='point': the n_mi x n_mi diagonal block of
-each grid point) are time lines of length 1 in this layout: the same
-kernels apply them with nt = 1, bw = n_mi.
+each grid point) are time lines of length 1 in this layout (nt = 1, bw =
+n_mi).  There the items are contiguous in the blocks and the vectors, and
+`block_apply` and `factored_block_apply` launch the point-block kernels of
+csrc/point_block.cu, which stream tiles of many blocks per ring stage
+(`point_block_geometry`); every launch with nt > 1 takes the line kernels.
 
 Vectors are the flat point-major (bs, N*m) solver layout, float32; the
 block inverse (or W) is (bs, S, bw, bw) row-major with block row
@@ -49,7 +52,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -154,14 +157,15 @@ def block_apply(
     float32.  With `d` given, writes d = c1 d + c2 t into d and returns it
     (c1 None reads as 0, and d is then not read; c2 None as 1; both
     per-sample (bs,) tensors); else returns t.  CUDA tensors launch kernel
-    K2; CPU tensors run the plain version.  K2 takes any bw: a block larger
-    than one CTA's shared memory (bw > 240 in float32, > 339 in bfloat16)
-    streams in panels of rows (`line_block_geometry`)."""
+    K2 (its point-block kernel where `point_path(nt, bw)`); CPU tensors run
+    the plain version.  K2 takes any bw: a block larger than one CTA's shared
+    memory (bw > 240 in float32, > 339 in bfloat16) streams in panels of
+    rows (`line_block_geometry`)."""
     if binv.is_cuda:
-        launcher = _K2_FN.get(binv.dtype)
-        if launcher is None:
+        kernels = _K2_FN.get(binv.dtype)
+        if kernels is None:
             raise ValueError(f"block_apply: K2 takes a float32 or bfloat16 B^-1, got {binv.dtype}")
-        return _launch_line_block(launcher, binv, r, nt, d, c1, c2)
+        return _launch_line_block(kernels, binv, r, nt, d, c1, c2)
     if binv.device.type != "cpu":
         raise ValueError(f"block_apply: unsupported device {binv.device}")
     return block_apply_plain(binv, r, nt, d, c1, c2)
@@ -177,8 +181,9 @@ def factored_block_apply(
 ) -> torch.Tensor:
     """t = W (W^T r) = B^-1 r per time-line block, from the bfloat16 factor
     W = L^-T of mg_precond_dtype='bf16_factored' (bs, S, bw, bw); same
-    vectors and epilogue as `block_apply`.  CUDA tensors launch kernel K3;
-    CPU tensors run the plain version.
+    vectors and epilogue as `block_apply`.  CUDA tensors launch kernel K3
+    (its point-block kernel where `point_path(nt, bw)`); CPU tensors run the
+    plain version.
 
     Contract: W is upper-triangular, with an exactly zero strict lower
     triangle (the solver stores L^-T with `.triu()`).  K3 reads only the
@@ -193,12 +198,26 @@ def factored_block_apply(
     return factored_block_apply_plain(w, r, nt, d, c1, c2)
 
 
-# stored block dtype -> (launcher, launch-count name, factored)
+class _Kernels(NamedTuple):
+    """A block apply's launchers and launch-count names: the line kernels
+    (csrc/line_block.cu) and the point-block ones (csrc/point_block.cu)."""
+
+    line_fn: str
+    line_counted: str
+    point_fn: str
+    point_counted: str
+    factored: bool
+
+
+# stored block dtype -> K2's kernels
 _K2_FN = {
-    torch.float32: ("k2_line_block_apply_f32", "k2_line_block_apply", False),
-    torch.bfloat16: ("k2_line_block_apply_bf16", "k2_line_block_apply_bf16", False),
+    torch.float32: _Kernels("k2_line_block_apply_f32", "k2_line_block_apply",
+                            "k2_point_block_apply_f32", "k2_point_block_apply", False),
+    torch.bfloat16: _Kernels("k2_line_block_apply_bf16", "k2_line_block_apply_bf16",
+                             "k2_point_block_apply_bf16", "k2_point_block_apply_bf16", False),
 }
-_K3_FN = ("k3_factored_line_block_apply_bf16", "k3_factored_line_block_apply", True)
+_K3_FN = _Kernels("k3_factored_line_block_apply_bf16", "k3_factored_line_block_apply",
+                  "k3_point_block_apply_bf16", "k3_point_block_apply", True)
 
 # Hopper SM shared memory: 227 KB a block may use, 228 KB an SM holds with
 # 1 KB reserved per resident block
@@ -315,10 +334,90 @@ def line_block_geometry(bs: int, S: int, bw: int, entry_bytes: int, n_sm: int,
                              bulk=bulk, panel_rows=rows)
 
 
-def _launch_line_block(launcher, blocks, r, nt, d, c1, c2):
-    """Check the operands of a csrc/line_block.cu kernel and launch it."""
-    fn, counted, factored = launcher
+# point blocks: the widths csrc/point_block.cu instantiates (n_mi of
+# VariableSet's six layouts: order 1 or 2 in 1, 2 or 3 coordinates)
+POINT_WIDTHS = (2, 3, 4, 5, 7)
+# the point kernels' tiles: a multiple of 32 items (so a full tile's blocks
+# and r are multiples of 16 bytes in f32 and bf16 and take the bulk copy),
+# at most this many block rows (consumer threads) a tile
+_POINT_MAX_CONSUMERS = 256
+# CTAs per SM (the kernels' __launch_bounds__), the most stages, and the
+# bytes of blocks the stages keep in flight per SM at least, where the
+# stage count allows
+_POINT_CTAS_PER_SM = 4
+_POINT_MAX_STAGES = 8
+_POINT_BYTES_IN_FLIGHT = 64 * 1024
+
+
+def point_path(nt: int, bw: int) -> bool:
+    """Whether a block apply launches the point-block kernels: nt == 1 (the
+    solver's point blocks; its time lines span at least 6 positions) at a
+    width they instantiate.  A one-position block of another width, which
+    the solver never makes, keeps the line kernels."""
+    return nt == 1 and bw in POINT_WIDTHS
+
+
+@dataclasses.dataclass(frozen=True)
+class PointBlockGeometry:
+    """Launch geometry of the point-block kernels (csrc/point_block.cu):
+    `ctas` persistent CTAs of one producer warp and `tile * bw` consumer
+    threads, each with a ring of `stages` stages of `tile` consecutive items
+    in `smem_bytes` of dynamic shared memory; CTA c takes the tiles c,
+    c + ctas, ... of the ceil(bs*N / tile) tiles, the last one partial
+    where tile does not divide bs*N.  `bulk`: a full
+    tile's blocks and r are each moved by one 1-D bulk copy (their bytes
+    and offsets multiples of 16); the partial tile, or every tile where
+    this is false, takes the kernels' own load path."""
+
+    tile: int
+    ctas: int
+    stages: int
+    smem_bytes: int
+    bulk: bool
+
+
+def point_block_smem_bytes(bw: int, tile: int, stages: int, entry_bytes: int,
+                           factored: bool) -> int:
+    """The point kernels' shared-memory layout (`make_layout` in
+    point_block.cu): 2 mbarriers per stage, K3's double-buffered f32 u of a
+    tile, and per stage the tile's blocks and its r, each padded to 16
+    bytes."""
+    u = _pad16(2 * 4 * tile * bw) if factored else 0
+    stage = _pad16(tile * bw * bw * entry_bytes) + _pad16(4 * tile * bw)
+    return 16 * stages + u + stages * stage
+
+
+@functools.lru_cache(maxsize=64)
+def point_block_geometry(bs: int, N: int, bw: int, entry_bytes: int, n_sm: int,
+                         factored: bool = False) -> PointBlockGeometry:
+    """Choose the point kernels' launch geometry for bs*N point blocks of
+    bw x bw entries of `entry_bytes` on a card of `n_sm` SMs: tiles of 32
+    items (64 at bw 3 and 4, 128 at bw 2: at most _POINT_MAX_CONSUMERS
+    rows), _POINT_CTAS_PER_SM CTAs per SM, and the fewest stages (at most
+    _POINT_MAX_STAGES) that keep _POINT_BYTES_IN_FLIGHT of blocks per SM
+    in flight while each CTA computes on one.  Raises ValueError for a bad
+    shape or a width the kernels do not instantiate."""
+    if min(bs, N, n_sm) < 1 or entry_bytes not in (2, 4):
+        raise ValueError(f"point_block_geometry: bad shape bs={bs} N={N} n_sm={n_sm} "
+                         f"entry_bytes={entry_bytes}")
+    if bw not in POINT_WIDTHS:
+        raise ValueError(f"point_block_geometry: bw={bw} is not a point width {POINT_WIDTHS}")
+    tile = 32 * max(1, _POINT_MAX_CONSUMERS // (32 * bw))
+    tile_bytes = tile * bw * bw * entry_bytes
+    in_flight = -(-_POINT_BYTES_IN_FLIGHT // (_POINT_CTAS_PER_SM * tile_bytes))
+    stages = min(_POINT_MAX_STAGES, 1 + in_flight)
+    tiles = -(-bs * N // tile)
+    return PointBlockGeometry(
+        tile=tile, ctas=min(tiles, n_sm * _POINT_CTAS_PER_SM), stages=stages,
+        smem_bytes=point_block_smem_bytes(bw, tile, stages, entry_bytes, factored),
+        bulk=tile_bytes % 16 == 0 and 4 * tile * bw % 16 == 0)
+
+
+def _launch_line_block(kernels, blocks, r, nt, d, c1, c2):
+    """Check the operands of a block apply and launch its kernel: the
+    point-block one where `point_path(nt, bw)`, else the line one."""
     bs, S, bw, bw2 = blocks.shape
+    fn = kernels.line_fn
     if bw != bw2 or bw % nt:
         raise ValueError(f"{fn}: bad block shape {tuple(blocks.shape)} for nt={nt}")
     m = bw // nt
@@ -335,16 +434,24 @@ def _launch_line_block(launcher, blocks, r, nt, d, c1, c2):
         if c is not None and tuple(c.shape) != (bs,):
             raise ValueError(f"{fn}: c1/c2 must be per-sample (bs,) tensors")
     _cuda.require_cuda(blocks, r, d, c1, c2)
-    geom = line_block_geometry(bs, S, bw, blocks.element_size(),
-                               _cuda.sm_count(blocks.device), factored)
+    n_sm = _cuda.sm_count(blocks.device)
+    stream = _cuda.stream_ptr(blocks.device)
+    if point_path(nt, bw):
+        geom = point_block_geometry(bs, S, bw, blocks.element_size(), n_sm, kernels.factored)
+        bulk = geom.bulk and blocks.data_ptr() % 16 == 0 and r.data_ptr() % 16 == 0
+        code = getattr(_cuda.library("point_block"), kernels.point_fn)(
+            blocks.data_ptr(), r.data_ptr(), d.data_ptr(), _cuda.ptr(c1), _cuda.ptr(c2),
+            bw, S, bs, geom.ctas, geom.tile, geom.stages, geom.smem_bytes, int(bulk), stream)
+        _cuda.check("point_block", kernels.point_counted, code)
+        return d
+    geom = line_block_geometry(bs, S, bw, blocks.element_size(), n_sm, kernels.factored)
     bulk = geom.bulk and blocks.data_ptr() % 16 == 0
-    lib = _cuda.library("line_block")
-    code = getattr(lib, fn)(
+    code = getattr(_cuda.library("line_block"), fn)(
         blocks.data_ptr(), r.data_ptr(), d.data_ptr(), _cuda.ptr(c1), _cuda.ptr(c2),
         m, nt, S, bs, geom.ctas, geom.panel_rows, geom.stages, geom.smem_bytes, int(bulk),
-        _cuda.stream_ptr(blocks.device),
+        stream,
     )
-    _cuda.check("line_block", counted, code)
+    _cuda.check("line_block", kernels.line_counted, code)
     return d
 
 

@@ -7,7 +7,7 @@ same contraction the JAX package runs).
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
@@ -43,3 +43,10 @@ def apply_separable(x: torch.Tensor, mats: Sequence[np.ndarray], offset: int = 1
         # tensordot moves the contracted axis to the end; bring it back
         x = torch.movedim(x, -1, axis)
     return x
+
+
+def resize_grid(x: torch.Tensor, old_shape: Tuple[int, ...], new_shape: Tuple[int, ...]):
+    """Align-corners resize of (bs, *old_shape) or (bs, C, *old_shape)."""
+    offset = x.ndim - len(old_shape)
+    mats = [interp_matrix(o, n) for o, n in zip(old_shape, new_shape)]
+    return apply_separable(x, mats, offset=offset)

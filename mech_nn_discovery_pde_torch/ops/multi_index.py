@@ -44,7 +44,15 @@ class VariableSet:
         else:
             raise ValueError("unsupported total order (must be 1 or 2)")
 
+        self.mi_to_index = {mi: i for i, mi in enumerate(self.mi_list)}
         self.n_mi = len(self.mi_list)
+
+        # human-readable labels: u, u_x0, ..., u_x0x0, ...
+        reprs = ["u"] + [f"u_x{i}" for i in range(n)]
+        if order == 2:
+            reprs += [f"u_x{i}x{i}" for i in range(n)]
+        self.mi_repr = reprs
+
         self.num_vars = self.grid_size * self.n_mi
 
         # time-derivative mi indices (u_t and, for order 2, u_tt)
@@ -73,6 +81,10 @@ class VariableSet:
             out.append(self.second_deriv_index(coord))
         return out
 
+    def var_index(self, grid_flat, mi_index):
+        """Flat variable index for (flat grid index, mi index); C-order."""
+        return np.asarray(grid_flat) * self.n_mi + mi_index
+
     # ---- grid predicates (vectorized over a (npoints, n_coord) array) --
 
     def grid_indices(self) -> np.ndarray:
@@ -92,3 +104,6 @@ class VariableSet:
         """Flat indices (C-order) of equation-constraint (interior) points."""
         gi = self.grid_indices()
         return np.nonzero(~self.is_boundary_or_initial(gi))[0]
+
+    def solution_shape(self, bs: int):
+        return (bs, self.grid_size, self.n_mi)

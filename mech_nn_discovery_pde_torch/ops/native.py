@@ -63,6 +63,9 @@ def _load() -> Optional[ctypes.CDLL]:
         L.build_pairs_sorted.restype = None
         L.build_pairs_sorted.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int64] * 2 + [
             ctypes.c_void_p] * 3
+        for fn in (L.stable_argsort_i64, L.stable_argsort_i32):
+            fn.restype = None
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
         _STATE["lib"] = L
         return L
 
@@ -98,6 +101,22 @@ def build_pairs_sorted(
     L.build_pairs_sorted(rows.ctypes.data, cols.ctypes.data, n, int(num_vars),
                          pa.ctypes.data, pb.ctypes.data, lin.ctypes.data)
     return pa.astype(np.int64), pb.astype(np.int64), lin
+
+
+def stable_argsort(keys: np.ndarray) -> Optional[np.ndarray]:
+    """Stable argsort (int64 permutation) of int64 or int32 keys by the
+    native library; None where it did not load or for another dtype."""
+    L = _load()
+    if L is None:
+        return None
+    fn = {np.dtype(np.int64): L.stable_argsort_i64,
+          np.dtype(np.int32): L.stable_argsort_i32}.get(keys.dtype)
+    if fn is None:
+        return None
+    keys = np.ascontiguousarray(keys)
+    perm = np.empty(keys.shape[0], dtype=np.int64)
+    fn(keys.ctypes.data, keys.shape[0], perm.ctypes.data)
+    return perm
 
 
 def pairs_sorted_numpy(rows: np.ndarray, cols: np.ndarray, num_vars: int):

@@ -160,6 +160,105 @@ def test_config_fields_match_jax():
     assert tf == jf
 
 
+def _case_var_index():
+    from mech_nn_discovery_pde_torch.ops.multi_index import VariableSet as TV
+    from mech_nn_discovery_pde_tpu.ops.multi_index import VariableSet as JV
+
+    for dims, order in (((8,), 1), ((6, 7), 2), ((6, 7, 8), 2)):
+        tv, jv = TV(dims, order), JV(dims, order)
+        g = np.random.default_rng(0).integers(0, tv.grid_size, 17)
+        for mi in range(tv.n_mi):
+            np.testing.assert_array_equal(tv.var_index(g, mi), jv.var_index(g, mi))
+        assert tv.solution_shape(3) == jv.solution_shape(3)
+        assert tv.mi_repr == jv.mi_repr and tv.mi_to_index == jv.mi_to_index
+
+
+def _specs(dims=(6, 7)):
+    return (tcons.build_constraint_spec(dims, 2, IVS[len(dims)], 1, 0.1),
+            jcons.build_constraint_spec(dims, 2, IVS[len(dims)], 1, 0.1))
+
+
+def _case_values_static_all():
+    for dims in ((8,), (6, 7), (6, 7, 8)):
+        ts, js = _specs(dims)
+        np.testing.assert_array_equal(ts.values_static_all, js.values_static_all)
+
+
+def _case_render_rows():
+    ts, js = _specs()
+    vals = np.random.default_rng(1).normal(size=ts.eq_rows.shape[0])
+    rhs = np.random.default_rng(2).normal(size=ts.n_eq_rows)
+    for block in ("equation", "initial", "derivative"):
+        assert tcons.render_rows(ts, block, max_rows=9) == jcons.render_rows(js, block,
+                                                                              max_rows=9)
+    assert (tcons.render_rows(ts, "equation", vals, rhs)
+            == jcons.render_rows(js, "equation", vals, rhs))
+
+
+def _case_resize_grid():
+    from mech_nn_discovery_pde_torch.ops.interp import resize_grid as tr
+    from mech_nn_discovery_pde_tpu.ops.interp import resize_grid as jr
+
+    g = np.random.default_rng(3)
+    for shape, old, new in (((2, 8, 16), (8, 16), (5, 9)), ((2, 3, 6, 8, 10), (6, 8, 10),
+                                                            (3, 4, 5))):
+        x = g.normal(size=shape)
+        got = tr(torch.tensor(x), old, new).numpy()
+        assert rel(got, np.asarray(jr(jnp.asarray(x), old, new))) <= 1e-12
+
+
+def _case_sine_dataset():
+    from mech_nn_discovery_pde_torch.data.datasets import SineDataset as TS
+    from mech_nn_discovery_pde_tpu.data.datasets import SineDataset as JS
+
+    for dims, end in (((32, 32), 1.0), ((16, 24), 2.0)):
+        t, j = TS(dims, end), JS(dims, end)
+        assert len(t) == len(j) == 1
+        assert rel(t[0], j[0]) <= 1e-12
+
+
+def _case_stable_argsort():
+    from mech_nn_discovery_pde_torch.ops import native as tn
+    from mech_nn_discovery_pde_tpu.ops import native as jn
+
+    keys = np.random.default_rng(4).integers(0, 50, 1000)
+    want = np.argsort(keys, kind="stable")
+    for dt in (np.int64, np.int32):
+        got = tn.stable_argsort(keys.astype(dt))
+        assert got is not None, tn.error()
+        np.testing.assert_array_equal(got, want)
+        ref = jn.stable_argsort(keys.astype(dt))
+        if ref is not None:
+            np.testing.assert_array_equal(got, ref)
+    assert tn.stable_argsort(keys.astype(np.float64)) is None
+
+
+def _case_data_dirs():
+    for root in ("data", "/x/y"):
+        t, j = TorchConfig(data_root=root), JaxConfig(data_root=root)
+        for name in ("ginzburg_dir", "rheology_dir", "burgers_dir"):
+            assert getattr(t, name) == getattr(j, name)
+
+
+PUBLIC_CASES = {
+    "var_index_solution_shape": _case_var_index,
+    "values_static_all": _case_values_static_all,
+    "render_rows": _case_render_rows,
+    "resize_grid": _case_resize_grid,
+    "sine_dataset": _case_sine_dataset,
+    "stable_argsort": _case_stable_argsort,
+    "data_dirs": _case_data_dirs,
+}
+
+
+@pytest.mark.parametrize("case", list(PUBLIC_CASES))
+def test_public_functions_match_jax(case):
+    """The JAX package's public helpers and their copies in the port give the
+    same results on the same inputs (index maps and strings exactly, floats
+    to 1e-12)."""
+    PUBLIC_CASES[case]()
+
+
 PORT_MODULES = ["mech_nn_discovery_pde_torch"] + [
     "mech_nn_discovery_pde_torch." + m for m in (
         "config", "ops.multi_index", "ops.constraints", "ops.interp", "ops.stencil",
