@@ -9,9 +9,10 @@ plain PyTorch version:
   1. device: requires CUDA; prints the card's name and power limit;
      builds the kernels (one nvcc per source, in parallel) and reads
      ptxas's report: every K1 instantiation (3 stored types x 6 layouts x
-     2 point widths), the six line_block.cu kernels and the 15 point_block.cu
-     ones (K2 f32 and bf16, K3; bw 2, 3, 4, 5, 7) must use no stack frame
-     and spill nothing;
+     2 point widths), the seven line_block.cu kernels (K2 f32 and bf16
+     streamed and on panels; K3 streamed, on a cluster and two-sweep) and
+     the 15 point_block.cu ones (K2 f32 and bf16, K3; bw 2, 3, 4, 5, 7)
+     must use no stack frame and spill nothing;
   2. kernels vs plain at the GL fine-level and level-1 shapes (bs 32):
      K1 f32/f64 and its epilogue (f64 and bf16 fields also in place), K2
      and its epilogue, 4-step smoothing
@@ -32,12 +33,15 @@ plain PyTorch version:
      run, in f32, f64 and bf16 fields with its epilogues, at bs 3 (one
      point a thread) and at bs 2 x SMs (16-byte loads); K1 f64 also beside
      its plain version and a float64 CSR sparse product at both levels;
-     then K2 (f32 and bf16) and K3 at time-line blocks wider than one CTA's
-     shared memory holds (bw 280 and 350, timed beside their bounds and
-     one bmm (two for K3) on an f32 copy of the blocks, also on 4 x as many
-     lines, beyond L2; bw 245 and 345, whose blocks are
-     aligned to 4 or 2 bytes: the kernels' row-tiled path and each of its
-     load units) against their plain versions; then K1 f64 (1e-12), K1 f32
+     then (2d) K2 (f32 and bf16) and K3 at time-line blocks wider than one
+     CTA's shared memory holds, on the row-tiled kernels their width gives
+     (K2's panel kernel, K3's cluster kernel, to bw 916, or its two-sweep
+     one), against their plain versions with and without the epilogue
+     (1e-5): bw 280 and 350 timed alone, back to back and on the device
+     beside their bounds (K3: W's upper triangle read once) and one bmm
+     (two for K3) on an f32 copy of the blocks, also on 4 x as many lines,
+     beyond L2; bw 245 and 345 (blocks aligned to 4 or 2 bytes), 406 (a
+     cluster of 6) and 980 (K3 past the cluster); then K1 f64 (1e-12), K1 f32
      and K2 (1e-5) with their epilogues, and a smoothing pass, at the
      transport multigrid example's shapes (its hierarchy: bs 5, (8, 512),
      m 5, bw 40; levels 0 and 1), each timed beside its plain version, a
@@ -55,6 +59,16 @@ plain PyTorch version:
   5. one forward of b30c4rm with mg_precond_dtype='bf16': finite u0, both
      bf16-operand variants (K1, K2) launched; rel_rnorm is printed with no
      bar (the mode is quality-fatal at GL scale);
+ 5b. the long-window layer step: (50, 32, 32) patches, bs 8, n_grid 3 with
+     downsample_first=True (fine-level time lines of bw 350: the row-tiled
+     kernels; level 1 bw 175: streamed; the coarsest a dense solve), the
+     b30c4rm settings, in f32 storage (K2 on panels) and 'bf16_factored'
+     (K3 on a cluster) with phase 3's timing core (launches by kernel and
+     by level: the row-tiled kernels only at level 0; step median, min,
+     max; profile; finite gradients; rel_rnorm at most 5.0e-3), its peak
+     memory, and each fine-level kernel at the step's own blocks against
+     its plain version (1e-5) and timed; then one 'bf16' forward (K2 bf16
+     on panels at level 0);
   6. trainer: 3 Adam steps of GLDiscovery.loss_fn at the GLConfig defaults
      on GL data generated into data/;
   7. dense path: entry()'s f32_ir forward (Burgers (32, 32), bs 10) within
@@ -134,14 +148,18 @@ plain PyTorch version:
  19. the native pair-table builder (g++, ops/native.py) loads, and its
      tables for the GL fine system equal the NumPy twin's; both timed;
  20. one JSON line {"kernels": [...]} with each kernel's numbers and the
-     launch counts of the run that drives it ("launches_in"); K1 and K1
+     launch counts of the run that drives it ("launches_in"; the row-tiled
+     K2 f32, K2 bf16 and K3 kernels are entries of their own, on the
+     long-window path, with its steps' numbers under "long_window_steps");
+     K1 and K1
      bf16 also carry their level-1 numbers ("*_level1") and K1 its f64
      ones ("f64_*"); K1 f64 is also an entry of its own, counted on the
      transport multigrid path, with its numbers at that path's shapes and
      its GL-shape ones beside them ("gl_shapes"); K1 and K2 carry their
      transport-shape numbers ("transport") and their launches in phase 12
-     ("launches_gl_nn_transform"); K2, K2 bf16 and K3 carry their wide-block
-     rows ("wide_blocks", each with its bmm times, "library_ms*"), the
+     ("launches_gl_nn_transform"); each line-block kernel carries the
+     phase-2d rows its route ran ("wide_blocks", each with its bmm times,
+     "library_ms*"), the
      point-block kernels their phase-16b numbers (with "*_level1", the
      device's time per launch from a CUDA graph of 20 launches,
      "device_ms", and line_block.cu's kernel's times, "parent_*"; K2's the
@@ -156,11 +174,14 @@ plain PyTorch version:
 Any failure exits nonzero.  Imports nothing of JAX.
 
 Run from the repository root:  python3 chip_smoke.py [--seed 0]
+tools/line_block_parent_check.py runs another checkout's line-block kernels
+in turns with this one's.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import json
@@ -205,6 +226,18 @@ def bound(n_bytes: float, n_flops: float, peak: float = PEAK_F32_FLOPS):
     their type (f32 unless given)."""
     t_bytes, t_flops = n_bytes / HBM_BYTES_PER_S, n_flops / peak
     return max(t_bytes, t_flops) * 1e3, "bytes" if t_bytes >= t_flops else "operations"
+
+
+def block_bound(blocks, n_vec: int, factored: bool):
+    """`bound` of a block apply over the (..., bw, bw) blocks and n_vec f32
+    entries of r read and of the result written: K2 reads every entry of
+    B^-1 once, 2 operations each; K3 needs W's upper triangle only (its
+    strict lower one is zero by contract), bw (bw + 1) / 2 entries a block,
+    read once and used twice (W^T r, then W u), 4 operations each."""
+    bw = blocks.shape[-1]
+    entries = blocks.numel() // (bw * bw) * (bw * (bw + 1) // 2 if factored else bw * bw)
+    return bound(entries * blocks.element_size() + 4 * 2 * n_vec,
+                 (4 if factored else 2) * entries)
 
 
 def time_ms(fn, n: int = 20, warmup: int = 3, batch: int = 1) -> float:
@@ -293,15 +326,16 @@ def check_k1_ptxas(text: str) -> None:
 
 
 def check_line_block_ptxas(text: str) -> None:
-    """The six line_block.cu kernels (K2 f32 and bf16, K3; streamed and
-    row-tiled) keep everything in registers: no stack frame, no spills."""
+    """The seven line_block.cu kernels (K2 f32 and bf16 streamed and on
+    panels, K3 streamed, on a cluster and two-sweep) keep everything in
+    registers: no stack frame, no spills."""
     rows = [r for r in ptxas_report(text) if re.search(r"k[23]_\w*line_block_apply", r[0])]
     for name, regs, stack, st, ld in rows:
         kern = re.search(r"(k[23]_\w*line_block_apply\w*?)(I|E)", name).group(1)
         log(f"  ptxas {kern}{' bf16' if 'bfloat16' in name else ''}: {regs} registers, "
             f"{stack} B stack frame, {st} B spill stores, {ld} B spill loads")
-    if len(rows) != 6 or any(any(r[2:]) for r in rows):
-        raise AssertionError(f"line_block ptxas: {len(rows)} kernels of 6, rows {rows}")
+    if len(rows) != 7 or any(any(r[2:]) for r in rows):
+        raise AssertionError(f"line_block ptxas: {len(rows)} kernels of 7, rows {rows}")
 
 
 POINT_MANGLED = re.compile(r"(k[23])_point_block_applyI(f|13__nv_bfloat16)?Li(\d)E")
@@ -536,7 +570,7 @@ def phase_kernels(layer, hier, values, dev, seed):
         t_k2blib = time_ms(lambda: torch.bmm(B16, rb))
         del B16
         vec_bytes = 4 * 2 * bs * N * m
-        k3_bound, k3_by = bound(2 * bs * S * bw * bw + vec_bytes, 4 * bs * S * bw * bw)
+        k3_bound, k3_by = block_bound(W, bs * N * m, True)
         k1b_bound, k1b_by = bound(2 * NC * N * bs + vec_bytes, 2 * (m * m + 2 * nb) * N * bs)
         k2b_bound, k2b_by = bound(2 * bs * S * bw * bw + vec_bytes, 2 * bs * S * bw * bw)
         log(f"  K3 {t_k3:.4f} ms (plain {t_k3p:.4f}, two bmm {t_k3lib:.4f}, bound "
@@ -802,13 +836,24 @@ def device_events(prof):
             and not any(o in e.name for o in PROFILER_OVERHEAD)]
 
 
+# the port's kernels by the name the profiler shows (each name matches only
+# itself: k2_line_block_apply is not k2_line_block_apply_panels)
+PORT_KERNELS = ("k1_stencil_apply", "k2_line_block_apply", "k2_line_block_apply_panels",
+                "k3_factored_line_block_apply", "k3_factored_line_block_apply_cluster",
+                "k3_factored_line_block_apply_tiled", "k2_point_block_apply",
+                "k3_point_block_apply")
+
+
+def is_kernel(name: str, event_name: str) -> bool:
+    """Whether a trace event is a launch of the kernel `name`."""
+    return re.search(rf"(?<!\w){name}(?!\w)", event_name) is not None
+
+
 def kernel_counts(prof):
     """Launch counts of the port's kernels in a trace, the device's busy time
     (microseconds: the union of the work's intervals, so overlapping
     streams count once) and device time by name."""
-    names = {"k1_stencil_apply": 0, "k2_line_block_apply": 0,
-             "k3_factored_line_block_apply": 0, "k2_point_block_apply": 0,
-             "k3_point_block_apply": 0}
+    names = dict.fromkeys(PORT_KERNELS, 0)
     by_name = {}
     spans = []
     for e in device_events(prof):
@@ -816,7 +861,7 @@ def kernel_counts(prof):
         t, c = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (t + e.time_range.end - e.time_range.start, c + 1)
         for n in names:
-            if n in e.name:
+            if is_kernel(n, e.name):
                 names[n] += 1
     busy_us, end = 0.0, float("-inf")
     for s, t in sorted(spans):
@@ -826,16 +871,23 @@ def kernel_counts(prof):
     return names, busy_us, by_name
 
 
-# the layer step's kernel of the time-line block apply, by storage mode; the
-# other block kernel must not launch
-BLOCK_KERNEL = {"f32": "k2_line_block_apply", "bf16_factored": "k3_factored_line_block_apply"}
+# the layer step's kernels of the time-line block apply, by storage mode; no
+# other block kernel may launch.  The GL step's 56-wide blocks take the
+# streamed kernels; the long window's fine level (bw 350) the row-tiled ones
+BLOCK_KERNEL = {"f32": ("k2_line_block_apply",),
+                "bf16_factored": ("k3_factored_line_block_apply",)}
+LONG_BLOCK_KERNEL = {"f32": ("k2_line_block_apply_panels", "k2_line_block_apply"),
+                     "bf16_factored": ("k3_factored_line_block_apply_cluster",
+                                       "k3_factored_line_block_apply"),
+                     "bf16": ("k2_line_block_apply_panels_bf16", "k2_line_block_apply_bf16")}
 
 
 def b30c4rm_layer(dev, precond="f32", bs=32, dims=(8, 32, 32), n_grid=3, evolution=False,
-                  mesh=None, **opts):
+                  mesh=None, downsample_first=False, **opts):
     """The production GL layer "b30c4rm" (bench.py:119-129) with the given
     stored-preconditioner dtype, evolution rows and further solver options,
-    sp-sharded over `mesh` when given."""
+    sp-sharded over `mesh` when given; `downsample_first` halves the time
+    axis too between levels (MultigridLayer's own default)."""
     from mech_nn_discovery_pde_torch.config import PDEConfig
     from mech_nn_discovery_pde_torch.discovery.ginzburg_landau import GLDiscovery
     from mech_nn_discovery_pde_torch.layers.multigrid import MultigridLayer
@@ -848,84 +900,144 @@ def b30c4rm_layer(dev, precond="f32", bs=32, dims=(8, 32, 32), n_grid=3, evoluti
                mg_precond_dtype=precond), **opts})
     return MultigridLayer(bs=bs, coord_dims=dims, order=2, n_ind_dim=1, n_iv=1,
                           init_index_mi_list=GLDiscovery.IV_LIST, solver_dbl=True,
-                          n_grid=n_grid, downsample_first=False, evolution=evolution,
+                          n_grid=n_grid, downsample_first=downsample_first, evolution=evolution,
                           config=cfg, device=dev, mesh=mesh)
+
+
+@contextlib.contextmanager
+def launches_by_level(layer):
+    """The block applies' launches by the level they run on: wraps the
+    layer's solver's `_block_apply(k, ...)` for the duration and yields
+    {level: Counter of the launches it made}."""
+    from mech_nn_discovery_pde_torch.ops import _cuda
+
+    mg = layer.mg_solver
+    levels = {}
+    block_apply = mg._block_apply
+
+    def counted(k, lvl, r, **epilogue):
+        before = dict(_cuda.LAUNCHES)
+        out = block_apply(k, lvl, r, **epilogue)
+        c = levels.setdefault(k, collections.Counter())
+        for n, v in _cuda.LAUNCHES.items():
+            if v != before.get(n, 0):
+                c[n] += v - before.get(n, 0)
+        return out
+
+    mg._block_apply = counted
+    try:
+        yield levels
+    finally:
+        del mg._block_apply
+
+
+def grad_step(layer, c0, r0, i0, steps):
+    """Forward + IFT backward of sum(u0^2) on the layer: (stats, gradients
+    w.r.t. coefficients, rhs and initial values)."""
+    c = c0.clone().requires_grad_(True)
+    r = r0.clone().requires_grad_(True)
+    i = i0.clone().requires_grad_(True)
+    u0, _, stats = layer(c, r, i, steps)
+    (u0**2).sum().backward()
+    return stats, (c.grad, r.grad, i.grad)
+
+
+def time_layer_step(layer, c0, r0, i0, steps, label, blocks, rel_bar=3.1e-3,
+                    level_blocks=None, runs=5):
+    """The timing core of phases 3, 4 and 5b: a warm-up step; one step with
+    the launch counts cleared just before and read just after, also by
+    level; its checks (each kernel of `blocks` launched and no other block
+    kernel, on each level only the kernels `level_blocks` gives it; every
+    gradient finite; forward rel_rnorm at most rel_bar, where given); the
+    step's median, min and max over `runs` runs on perturbed inputs; one
+    profiled step (the card's activities only): launches by kernel (the
+    same checks), device busy time, idle share, the top kernels.  Returns
+    the numbers."""
+    from mech_nn_discovery_pde_torch.ops import _cuda
+
+    bs = c0.shape[0]
+    t0 = time.perf_counter()
+    grad_step(layer, c0, r0, i0, steps)
+    torch.cuda.synchronize()
+    log(f"{label}: warm-up step {time.perf_counter() - t0:.3f} s")
+    _cuda.LAUNCHES.clear()
+    with launches_by_level(layer) as by_level:
+        stats, grads = grad_step(layer, c0, r0, i0, steps)
+        torch.cuda.synchronize()
+    counts = dict(_cuda.LAUNCHES)
+    its = stats["iters"].tolist()
+    rel = stats["rel_rnorm"]
+    log(f"{label}: step launches {counts}; block applies by level "
+        f"{ {k: dict(v) for k, v in sorted(by_level.items())} }; forward FGMRES iters "
+        f"{sorted(set(its))}, rel_rnorm max {float(rel.max()):.4e} mean {float(rel.mean()):.4e}")
+    stray = [n for n in counts if n.startswith(("k2_", "k3_")) and n not in blocks]
+    if any(counts.get(n, 0) == 0 for n in blocks) or stray:
+        raise AssertionError(f"{label}: block applies {counts}, want exactly {blocks}")
+    for k, want in (level_blocks or {}).items():
+        if set(by_level.get(k, {})) != set(want):
+            raise AssertionError(f"{label}: level {k} block applies {dict(by_level.get(k, {}))}, "
+                                 f"want {want}")
+    for name, gr in zip(("coeffs", "rhs", "iv"), grads):
+        if not bool(torch.isfinite(gr).all()):
+            raise AssertionError(f"{label}: non-finite gradient w.r.t. {name}")
+    if rel_bar is not None and not float(rel.max()) <= rel_bar:
+        raise AssertionError(f"{label}: forward rel_rnorm {float(rel.max()):.3e} above the "
+                             f"{rel_bar:.1e} bar")
+
+    ts = []
+    for k in range(runs):
+        t0 = time.perf_counter()
+        grad_step(layer, c0 + 1e-6 * (k + 1), r0, i0, steps)
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t0)
+    ts.sort()
+    dt = ts[len(ts) // 2]
+    log(f"{label}: step median {dt:.4f} s over {runs} runs (min {ts[0]:.4f}, max "
+        f"{ts[-1]:.4f}, spread {(ts[-1] - ts[0]) / dt:.3f}); {bs / dt:.3f} KKT solves/s")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        grad_step(layer, c0, r0, i0, steps)
+        torch.cuda.synchronize()
+    names, busy_us, by_name = kernel_counts(prof)
+    idle = max(0.0, 1 - busy_us / 1e6 / dt)
+    log(f"profiler: kernel launches {names}; device busy {busy_us / 1e6:.4f} s per step, "
+        f"idle share {idle:.3f} of the unprofiled median step")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    for name, (us, c) in top:
+        log(f"  {us / 1e3:10.3f} ms  x{c:6d}  {name[:90]}")
+    # a kernel's instantiations together (K1: one per layout and point width)
+    device_ms = {n: sum(us for e, (us, _) in by_name.items() if is_kernel(n, e)) / 1e3
+                 for n in names}
+    log("profiler: device ms per step by kernel: " + ", ".join(
+        f"{n} {ms:.3f}" for n, ms in device_ms.items()))
+    for n, c in names.items():
+        want = n == "k1_stencil_apply" or any(n == b or n + "_bf16" == b for b in blocks)
+        if want and c == 0:
+            raise AssertionError(f"profiler shows no launch of {n} in the {label}")
+        if not want and c != 0:
+            raise AssertionError(f"profiler shows {c} launches of {n} in the {label}")
+    return dict(counts=counts, by_level={k: dict(v) for k, v in by_level.items()},
+                rel_rnorm=float(rel.max()), iters=sorted(set(its)), step_s_median=dt,
+                step_s_min=ts[0], step_s_max=ts[-1], device_busy_s=busy_us / 1e6,
+                idle_share=idle, device_ms=device_ms,
+                top_kernels=[(n[:90], us / 1e3, c) for n, (us, c) in top[:6]])
 
 
 def phase_layer(seed, dev, precond="f32", bs=32, dims=(8, 32, 32)):
     """Phases 3 and 4: the b30c4rm layer step (b30c4rmw with
     precond='bf16_factored'), forward + IFT backward.  Returns the launch
     counts of one step and its forward rel_rnorm max."""
-    from mech_nn_discovery_pde_torch.ops import _cuda
-
     t0 = time.perf_counter()
     layer = b30c4rm_layer(dev, precond, bs, dims)
     (c0, r0, i0), steps = bench_inputs(layer, bs, dims, seed, dev)
     log(f"layer ({precond} preconditioner storage) built in {time.perf_counter() - t0:.2f} s: "
         f"{layer.system.describe()}")
-
-    def step(c):
-        c = c.clone().requires_grad_(True)
-        r = r0.clone().requires_grad_(True)
-        i = i0.clone().requires_grad_(True)
-        u0, _, stats = layer(c, r, i, steps)
-        (u0**2).sum().backward()
-        return stats, (c.grad, r.grad, i.grad)
-
-    t0 = time.perf_counter()
-    stats, grads = step(c0)
-    torch.cuda.synchronize()
-    log(f"warm-up step {time.perf_counter() - t0:.3f} s")
-    _cuda.LAUNCHES.clear()
-    stats, grads = step(c0)
-    torch.cuda.synchronize()
-    counts = dict(_cuda.LAUNCHES)
-    its = stats["iters"].tolist()
-    rel = stats["rel_rnorm"]
-    log(f"layer step launches {counts}; forward FGMRES iters {sorted(set(its))}, "
-        f"rel_rnorm max {float(rel.max()):.4e} mean {float(rel.mean()):.4e}")
-    block = BLOCK_KERNEL[precond]
-    stray = [n for n in counts if n.startswith(("k2_", "k3_")) and n != block]
-    if counts.get(block, 0) == 0 or stray:
-        raise AssertionError(f"{precond} layer step: block applies {counts}, want only {block}")
-    for name, gr in zip(("coeffs", "rhs", "iv"), grads):
-        if not bool(torch.isfinite(gr).all()):
-            raise AssertionError(f"non-finite gradient w.r.t. {name}")
-    if not float(rel.max()) <= 3.1e-3:
-        raise AssertionError(f"forward rel_rnorm {float(rel.max()):.3e} above the 3.1e-3 bar")
-
-    ts = []
-    for k in range(5):
-        t0 = time.perf_counter()
-        step(c0 + 1e-6 * (k + 1))
-        torch.cuda.synchronize()
-        ts.append(time.perf_counter() - t0)
-    ts.sort()
-    dt = ts[len(ts) // 2]
-    log(f"layer step median {dt:.4f} s over 5 runs (min {ts[0]:.4f}, max {ts[-1]:.4f}, "
-        f"spread {(ts[-1] - ts[0]) / dt:.3f}); {bs / dt:.3f} KKT solves/s")
-
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step(c0)
-        torch.cuda.synchronize()
-    names, busy_us, by_name = kernel_counts(prof)
-    log(f"profiler: kernel launches {names}; device busy {busy_us / 1e6:.4f} s per step, "
-        f"idle share {max(0.0, 1 - busy_us / 1e6 / dt):.3f} of the unprofiled median step")
-    for name, (us, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
-        log(f"  {us / 1e3:10.3f} ms  x{c:6d}  {name[:90]}")
-    # a kernel's instantiations together (K1: one per layout and point width)
-    log("profiler: device ms per step by kernel: " + ", ".join(
-        f"{n} {sum(us for e, (us, _) in by_name.items() if n in e) / 1e3:.3f}" for n in names))
-    for n, c in names.items():
-        want = n in ("k1_stencil_apply", block)
-        if want and c == 0:
-            raise AssertionError(f"profiler shows no launch of {n} in the layer step")
-        if not want and c != 0:
-            raise AssertionError(f"profiler shows {c} launches of {n} in the {precond} layer step")
-    return counts, float(rel.max())
+    out = time_layer_step(layer, c0, r0, i0, steps, f"{precond} layer step",
+                          BLOCK_KERNEL[precond])
+    return out["counts"], out["rel_rnorm"]
 
 
 # the solver options of the JAX package beyond b30c4rm, each a layer step at
@@ -1611,9 +1723,7 @@ def time_point_kernel(label, kern, plain, blocks, x, t_k, factored):
           1e-5)
     row["library_ms"] = time_ms(lib)
     row["library_ms_back_to_back"] = time_ms_back_to_back(lib)
-    row["bound_ms"], row["bound_by"] = bound(blocks.numel() * blocks.element_size()
-                                             + 4 * 2 * x.numel(),
-                                             (4 if factored else 2) * blocks.numel())
+    row["bound_ms"], row["bound_by"] = block_bound(blocks, x.numel(), factored)
     log(f"  {label}: {row['ms']:.4f} ms, back to back {row['ms_back_to_back']:.4f} ms "
         f"({b2b['point'][0]:.4f}, {b2b['point'][1]:.4f}), device {row['device_ms']:.4f} ms; "
         f"bound {row['bound_ms']:.4f} ({row['bound_by']}; "
@@ -1812,30 +1922,135 @@ def phase_native(dev):
         f"{t_native:.3f} s, NumPy {t_numpy:.3f} s")
 
 
-def phase_bf16_forward(seed, dev, bs=32, dims=(8, 32, 32)):
-    """Phase 5: one forward of b30c4rm with all-bf16 preconditioner storage.
-    Returns the launch counts of that forward."""
+def phase_bf16_forward(seed, dev, bs=32, dims=(8, 32, 32), downsample_first=False,
+                       level_blocks=None):
+    """Phase 5: one forward of b30c4rm with all-bf16 preconditioner storage,
+    with the launch counts cleared just before and read just after: K1's
+    bf16-field variant and K2's bf16 one must launch (phase 5b: the
+    kernels `level_blocks` gives each level, and no other block kernel
+    there).  Returns the launch counts of that forward and the layer."""
     from mech_nn_discovery_pde_torch.ops import _cuda
 
-    layer = b30c4rm_layer(dev, "bf16", bs, dims)
+    layer = b30c4rm_layer(dev, "bf16", bs, dims, downsample_first=downsample_first)
     (c0, r0, i0), steps = bench_inputs(layer, bs, dims, seed, dev)
     torch.cuda.synchronize()
     _cuda.LAUNCHES.clear()
     t0 = time.perf_counter()
-    with torch.no_grad():
+    with torch.no_grad(), launches_by_level(layer) as by_level:
         u0, _, stats = layer(c0, r0, i0, steps)
-    torch.cuda.synchronize()
+        torch.cuda.synchronize()
     counts = dict(_cuda.LAUNCHES)
     rel = stats["rel_rnorm"]
-    log(f"bf16 forward {time.perf_counter() - t0:.3f} s: launches {counts}; FGMRES iters "
-        f"{sorted(set(stats['iters'].tolist()))}, rel_rnorm max {float(rel.max()):.4e} "
+    log(f"bf16 forward {dims} {time.perf_counter() - t0:.3f} s: launches {counts}; block "
+        f"applies by level { {k: dict(v) for k, v in sorted(by_level.items())} }; FGMRES "
+        f"iters {sorted(set(stats['iters'].tolist()))}, rel_rnorm max {float(rel.max()):.4e} "
         f"mean {float(rel.mean()):.4e} (no bar: quality-fatal at GL scale)")
     if not bool(torch.isfinite(u0).all()):
         raise AssertionError("bf16 forward: non-finite u0")
-    for n in ("k1_stencil_apply_bf16", "k2_line_block_apply_bf16"):
+    blocks = (tuple(n for v in level_blocks.values() for n in v) if level_blocks
+              else ("k2_line_block_apply_bf16",))
+    for n in ("k1_stencil_apply_bf16", *blocks):
         if counts.get(n, 0) == 0:
             raise AssertionError(f"bf16 forward did not launch {n}")
-    return counts
+    for k, want in (level_blocks or {}).items():
+        if set(by_level.get(k, {})) != set(want):
+            raise AssertionError(f"bf16 forward: level {k} block applies "
+                                 f"{dict(by_level.get(k, {}))}, want {want}")
+    return counts, layer
+
+
+def fine_level_kernel(layer, c0, r0, i0, steps, mode, seed, dev):
+    """The long-window fine level's row-tiled kernel at the main path's
+    shapes: the blocks the layer's hierarchy stores (bw 350, bs x 1024
+    lines; B^-1 in f32 or bf16, or W), against its plain version with and
+    without the epilogue (1e-5) and its bmm yardstick, then timed
+    (`time_line_kernel`)."""
+    from mech_nn_discovery_pde_torch.ops import _cuda
+    from mech_nn_discovery_pde_torch.ops import fused_smoother as fs
+
+    with torch.no_grad():
+        _, _, hier = layer._prepare(c0, r0, i0, steps)
+    blocks = hier["levels"][0]["binv"]
+    del hier
+    nt = layer.mg_solver.dim_list[0][0]
+    bs, S, bw, _ = blocks.shape
+    m, n = bw // nt, nt * S * (bw // nt)
+    g = torch.Generator(device=dev).manual_seed(seed + 6)
+    x = torch.randn((bs, n), generator=g, device=dev)
+    b = torch.randn((bs, n), generator=g, device=dev)
+    c1 = torch.rand((bs,), generator=g, device=dev)
+    c2 = torch.rand((bs,), generator=g, device=dev)
+    factored = mode == "bf16_factored"
+    name, _, kern, plain, _ = line_kernels()[2 if factored else 1 if mode == "bf16" else 0]
+    geo = fs.line_block_geometry(bs, S, bw, blocks.element_size(), _cuda.sm_count(dev),
+                                 factored)
+    label = f"{name} ({geo.route}) on the long-window fine level (bs {bs}, {S} lines of {bw}^2)"
+    resident = resident_clusters(geo) if geo.route == "cluster" else None
+    log(f"  {label}: {geo}" + (f"; {resident} clusters resident at once" if resident else ""))
+    t_k, err = check_line_kernel(label, kern, plain, blocks, x, b, c1, c2, nt)
+    lib, to_vec = block_library_call(blocks, x, nt, m, factored)
+    check(f"{label} {'two-bmm' if factored else 'bmm'} yardstick", rel_err(to_vec(lib()), t_k),
+          1e-5)
+    row = dict(max_abs_err=err, bw=bw, lines=S, bs=bs, path=geo.route,
+               panel_rows=geo.panel_rows, cluster=geo.cluster, stages=geo.stages, ctas=geo.ctas,
+               resident_clusters=resident)
+    row.update(time_line_kernel(label, lambda: kern(blocks, x, nt, d=t_k),
+                                lambda: plain(blocks, x, nt), lib, blocks, bs * n, factored))
+    return row
+
+
+# the long-window step's forward rel_rnorm bar: 7 % above the 4.65e-3 (f32
+# storage) and 4.68e-3 ('bf16_factored') both modes reach at --seed 0 on an
+# H100 after their 30 FGMRES iterations (the GL bar, 3.1e-3, is for
+# (8, 32, 32) patches); the row-tiled kernels move it by 0.01 %
+LONG_REL_BAR = 5.0e-3
+
+
+def phase_long_window(seed, dev, bs=8, dims=(50, 32, 32)):
+    """Phase 5b: the GL layer step with a long time window, (50, 32, 32)
+    patches at n_grid 3 with MultigridLayer's default downsample_first=True
+    (levels (50, 32, 32), (25, 16, 16), (12, 8, 8): time-line blocks of bw
+    350 at the fine level, which take the row-tiled kernels, 175 at level
+    1, streamed; the coarsest a dense solve), bs 8, the b30c4rm solver
+    settings.  In f32 storage (K2 on panels) and 'bf16_factored' (K3 on a
+    cluster): `time_layer_step` (3 timed runs; rel_rnorm at most
+    LONG_REL_BAR; the row-tiled kernels only at level 0, the streamed only
+    at level 1), the peak memory, and the fine level's kernel at the main
+    path's shapes (`fine_level_kernel`).  Then one
+    all-'bf16' forward (K2 bf16 on panels at level 0).  Returns (kernel
+    rows by key, launch counts by storage mode, the steps' numbers)."""
+    t_phase = time.perf_counter()
+    rows, counts, steps_out = {}, {}, {}
+    for precond, key in (("f32", "k2_panels"), ("bf16_factored", "k3_cluster")):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        layer = b30c4rm_layer(dev, precond, bs, dims, downsample_first=True)
+        (c0, r0, i0), steps = bench_inputs(layer, bs, dims, seed, dev)
+        mg = layer.mg_solver
+        m = layer.system.var_set.n_mi
+        log(f"long-window layer ({precond} storage) built in {time.perf_counter() - t0:.2f} s: "
+            f"levels {mg.dim_list}, line blocks of bw "
+            f"{[d[0] * m for d in mg.dim_list[:-1]]}; {layer.system.describe()}")
+        label = f"long-window {precond} layer step (bs {bs}, {dims})"
+        blocks = LONG_BLOCK_KERNEL[precond]
+        res = time_layer_step(layer, c0, r0, i0, steps, label, blocks, rel_bar=LONG_REL_BAR,
+                              level_blocks={0: blocks[:1], 1: blocks[1:]}, runs=3)
+        res["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        log(f"{label}: peak memory {res['peak_memory_gib']:.3f} GiB")
+        rows[key] = fine_level_kernel(layer, c0, r0, i0, steps, precond, seed, dev)
+        counts[precond], steps_out[precond] = res["counts"], res
+        del layer, mg
+    torch.cuda.empty_cache()
+    blocks = LONG_BLOCK_KERNEL["bf16"]
+    counts["bf16"], layer = phase_bf16_forward(seed, dev, bs, dims, downsample_first=True,
+                                               level_blocks={0: blocks[:1], 1: blocks[1:]})
+    (c0, r0, i0), steps = bench_inputs(layer, bs, dims, seed, dev)
+    rows["k2_panels_bf16"] = fine_level_kernel(layer, c0, r0, i0, steps, "bf16", seed, dev)
+    del layer
+    torch.cuda.empty_cache()
+    log(f"phase 5b took {time.perf_counter() - t_phase:.1f} s")
+    return rows, counts, steps_out
 
 
 def phase_trainer(dev, cfg=None):
@@ -1902,24 +2117,84 @@ def block_library_call(blocks, x, nt, m, factored):
     return call, lambda z: fs.line_blocks_to_vec(z.reshape(bs, S, bw), nt, m)
 
 
-# (nt, m, S, timed): bw 280 and 350 at bs 2 x 64 lines, timed; bw 245 and
-# 345 (odd, S 6) for correctness only: their blocks are aligned to 4 or 2
-# bytes, which the row-tiled load path copies in 4-byte units or 2-byte loads
-WIDE_SHAPES = ((40, 7, 64, True), (50, 7, 64, True), (35, 7, 6, False), (69, 5, 6, False))
+def time_line_kernel(label, run, plain, lib, blocks, n_vec, factored):
+    """A line-block kernel's times at one shape: alone, back to back and on
+    the device alone (`graph_ms`); its plain version; its library yardstick
+    (one bmm, two for K3); its bound (`block_bound`: the blocks, r read,
+    the result written)."""
+    row = dict(ms=time_ms(run), device_ms=graph_ms(run), ms_back_to_back=time_ms_back_to_back(run),
+               plain_ms=time_ms(plain), library_ms=time_ms(lib),
+               library_ms_back_to_back=time_ms_back_to_back(lib))
+    row["bound_ms"], row["bound_by"] = block_bound(blocks, n_vec, factored)
+    log(f"  {label}: {row['ms']:.4f} ms, back to back {row['ms_back_to_back']:.4f} ms, device "
+        f"{row['device_ms']:.4f}; bound {row['bound_ms']:.4f} ({row['bound_by']}; "
+        f"{row['bound_ms'] / row['ms_back_to_back']:.1%} of it back to back, "
+        f"{row['bound_ms'] / row['device_ms']:.1%} on the device); plain "
+        f"{row['plain_ms']:.4f}; {'two bmm' if factored else 'bmm'} {row['library_ms']:.4f}, "
+        f"back to back {row['library_ms_back_to_back']:.4f}")
+    return row
+
+
+def line_kernels():
+    """K2 f32, K2 bf16 and K3 on the line blocks: (label, key, apply, plain
+    version, factored), the key that of the kernels line."""
+    from mech_nn_discovery_pde_torch.ops import fused_smoother as fs
+
+    return (("K2 f32", "k2", fs.block_apply, fs.block_apply_plain, False),
+            ("K2 bf16", "k2_bf16", fs.block_apply, fs.block_apply_plain, False),
+            ("K3", "k3", fs.factored_block_apply, fs.factored_block_apply_plain, True))
+
+
+def resident_clusters(geo) -> int:
+    """For the cluster kernel's geometry: the clusters the card holds at once
+    (the launcher caps the grid at it; csrc/line_block.cu
+    k3_cluster_occupancy)."""
+    import ctypes
+
+    from mech_nn_discovery_pde_torch.ops import _cuda
+
+    fn = _cuda.library("line_block").k3_cluster_occupancy
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    n = fn(geo.cluster, geo.smem_bytes)
+    if n < 1:
+        raise AssertionError(f"k3_cluster_occupancy({geo.cluster}, {geo.smem_bytes}) = {n}")
+    return n
+
+
+def check_line_kernel(label, kern, plain, blocks, x, b, c1, c2, nt, tol=1e-5):
+    """A line-block kernel against its plain version, alone and with the
+    Chebyshev epilogue; returns (kernel's t, its max-abs error)."""
+    t_k, t_p = kern(blocks, x, nt), plain(blocks, x, nt)
+    check(f"{label} apply", rel_err(t_k, t_p), tol)
+    d_k, d_p = b.clone(), b.clone()
+    kern(blocks, x, nt, d=d_k, c1=c1, c2=c2)
+    plain(blocks, x, nt, d=d_p, c1=c1, c2=c2)
+    check(f"{label} Chebyshev epilogue", rel_err(d_k, d_p), tol)
+    return t_k, abs_err(t_k, t_p)
+
+
+# (nt, m, S, timed): bw 280 and 350 at bs 2 x 64 lines, timed; the others
+# for correctness only: bw 245 and 345, whose blocks are aligned to 4 or 2
+# bytes (the two-sweep load path's units; the panel copy's head and tail);
+# bw 406, where K3's cluster grows to 6 CTAs (350 and 345: 4, neither a
+# multiple of the cluster, the last CTA's rows partial); bw 980, K3 past
+# the cluster (the two-sweep kernel) and K2 at panels of 8 and 16 rows
+WIDE_SHAPES = ((40, 7, 64, True), (50, 7, 64, True), (35, 7, 6, False), (69, 5, 6, False),
+               (58, 7, 6, False), (140, 7, 2, False))
 
 
 def phase_wide_blocks(dev, seed, bs=2):
     """Phase 2d: K2 (f32 and bf16 inverses) and K3 at time-line blocks wider
-    than the streamed path holds, against their plain versions with the
-    Chebyshev epilogue (1e-5), random SPD blocks from --seed: bw 280 (nt 40;
-    K2 f32 row-tiled, K2 bf16 and K3 streamed), bw 350 (nt 50; all three
-    row-tiled; bf16 blocks of 245,000 B take the in-kernel load path), and
-    bw 245 and 345 (odd widths, correctness only).  bw 280 and 350 are
-    timed alone and back to back, beside their bound (each input read once;
-    the row-tiled K3 reads W twice, also given); the S-line blocks at bw
-    280 stay in L2 across back-to-back launches, so each kernel is also
-    timed back to back, and checked, on random blocks of 4 x S lines, a
-    working set beyond L2 ("*_4S")."""
+    than the streamed path holds, against their plain versions with and
+    without the Chebyshev epilogue (1e-5), random SPD blocks from --seed, at
+    WIDE_SHAPES: each launch's kernel (`route`) is the one its shape gives
+    (`line_block_route`): the panel kernel (K2), the cluster kernel (K3 to
+    bw 916) or the two-sweep one (K3 beyond).  bw 280 and 350 are timed
+    (`time_line_kernel`): alone, back to back and on the device, beside
+    their bound (`block_bound`), their plain version and their bmm
+    yardstick (two for K3), also on random blocks of 4 x S lines, a working
+    set beyond L2 ("*_4S"; the S-line blocks stay in L2 between
+    back-to-back launches).  Returns the timed rows, each with its route."""
     from mech_nn_discovery_pde_torch.ops import _cuda
     from mech_nn_discovery_pde_torch.ops import fused_smoother as fs
 
@@ -1933,45 +2208,36 @@ def phase_wide_blocks(dev, seed, bs=2):
         c1 = torch.rand((bs,), generator=g, device=dev)
         c2 = torch.rand((bs,), generator=g, device=dev)
         binv, W = spd_blocks(bs, S, bw, g, dev)
-        cases = (("K2 f32", "k2", fs.block_apply, fs.block_apply_plain, binv, False),
-                 ("K2 bf16", "k2_bf16", fs.block_apply, fs.block_apply_plain,
-                  binv.to(torch.bfloat16), False),
-                 ("K3", "k3", fs.factored_block_apply, fs.factored_block_apply_plain, W, True))
-        for name, key, kern, plain, blocks, factored in cases:
+        operands = {"k2": binv, "k2_bf16": binv.to(torch.bfloat16), "k3": W}
+        for name, key, kern, plain, factored in line_kernels():
+            blocks = operands[key]
             geo = fs.line_block_geometry(bs, S, bw, blocks.element_size(), _cuda.sm_count(dev),
                                          factored)
-            tiled = geo.panel_rows < bw
-            label = f"{name} bw {bw} ({'row-tiled' if tiled else 'streamed'})"
-            log(f"  {label}: {geo}")
-            t_k, t_p = kern(blocks, x, nt), plain(blocks, x, nt)
-            check(f"{label} apply", rel_err(t_k, t_p), 1e-5)
-            d_k, d_p = b.clone(), b.clone()
-            kern(blocks, x, nt, d=d_k, c1=c1, c2=c2)
-            plain(blocks, x, nt, d=d_p, c1=c1, c2=c2)
-            check(f"{label} Chebyshev epilogue", rel_err(d_k, d_p), 1e-5)
+            if geo.route != fs.line_block_route(bw, geo.panel_rows, factored):
+                raise AssertionError(f"{name} bw {bw}: geometry {geo} off its shape's route")
+            label = f"{name} bw {bw} ({geo.route})"
+            resident = resident_clusters(geo) if geo.route == "cluster" else None
+            log(f"  {label}: {geo}" + (f"; {resident} clusters resident at once of the "
+                                       f"{geo.ctas // geo.cluster} asked" if resident else ""))
+            _cuda.LAUNCHES.clear()
+            t_k, err = check_line_kernel(label, kern, plain, blocks, x, b, c1, c2, nt)
             torch.cuda.synchronize()
+            kernels = fs._K3_FN if factored else fs._K2_FN[blocks.dtype]
+            if dict(_cuda.LAUNCHES) != {kernels.line_counted[geo.route]: 2}:
+                raise AssertionError(f"{label}: launches {dict(_cuda.LAUNCHES)}, want 2 of "
+                                     f"{kernels.line_counted[geo.route]}")
             if not timed:
                 continue
-            ms = time_ms(lambda: kern(blocks, x, nt, d=d_k))
-            b2b = time_ms_back_to_back(lambda: kern(blocks, x, nt, d=d_k))
             lib, to_vec = block_library_call(blocks, x, nt, m, factored)
             check(f"{label} {'two-bmm' if factored else 'bmm'} yardstick",
                   rel_err(to_vec(lib()), t_k), 1e-5)
-            blk_bytes = bs * S * bw * bw * blocks.element_size()
-            flops = (4 if factored else 2) * bs * S * bw * bw
-            bnd, by = bound(blk_bytes + 4 * 2 * bs * n, flops)
-            row = dict(kernel=key, bw=bw, tiled=tiled, panel_rows=geo.panel_rows,
-                       bulk=geo.bulk, max_abs_err=abs_err(t_k, t_p), ms=ms,
-                       ms_back_to_back=b2b, bound_ms=bnd, bound_by=by,
-                       library_ms=time_ms(lib), library_ms_back_to_back=time_ms_back_to_back(lib))
+            row = dict(kernel=key, bw=bw, route=geo.route, panel_rows=geo.panel_rows,
+                       cluster=geo.cluster, stages=geo.stages, ctas=geo.ctas, bulk=geo.bulk,
+                       resident_clusters=resident, max_abs_err=err)
+            row.update(time_line_kernel(label, lambda: kern(blocks, x, nt, d=t_k),
+                                        lambda: plain(blocks, x, nt), lib, blocks, bs * n,
+                                        factored))
             del lib
-            msg = (f"  {label}: {ms:.4f} ms, back to back {b2b:.4f} ms (bound {bnd:.4f}; "
-                   f"library {row['library_ms']:.4f}, back to back "
-                   f"{row['library_ms_back_to_back']:.4f}")
-            if factored and tiled:
-                row["bound_ms_w_twice"] = bound(2 * blk_bytes + 4 * 2 * bs * n, flops)[0]
-                msg += f"; reading W twice {row['bound_ms_w_twice']:.4f}"
-            log(msg + ")")
             # the same launch on random blocks of 4 x S lines: 80 MB or more,
             # beyond the 50 MB L2, which holds the S-line blocks (20-40 MB
             # at bw 280) across back-to-back launches
@@ -1980,16 +2246,16 @@ def phase_wide_blocks(dev, seed, bs=2):
             xb = torch.randn((bs, 4 * n), generator=g, device=dev)
             t_big = kern(big, xb, nt)
             check(f"{label} apply, 4 x S lines", rel_err(t_big, plain(big, xb, nt)), 1e-5)
-            row["ms_back_to_back_4S"] = time_ms_back_to_back(lambda: kern(big, xb, nt, d=t_big))
-            row["bound_ms_4S"] = bound(4 * blk_bytes + 4 * 2 * bs * 4 * n, 4 * flops)[0]
             lib, _ = block_library_call(big, xb, nt, m, factored)
-            row["library_ms_back_to_back_4S"] = time_ms_back_to_back(lib)
-            log(f"  {label}, {4 * S} lines ({4 * blk_bytes / 1e6:.0f} MB of blocks): back to back "
-                f"{row['ms_back_to_back_4S']:.4f} ms (bound {row['bound_ms_4S']:.4f}; library "
-                f"{row['library_ms_back_to_back_4S']:.4f})")
+            mb = big.numel() * big.element_size() / 1e6
+            big_row = time_line_kernel(f"{label}, {4 * S} lines ({mb:.0f} MB of blocks)",
+                                       lambda: kern(big, xb, nt, d=t_big),
+                                       lambda: plain(big, xb, nt), lib, big, bs * 4 * n,
+                                       factored)
+            row.update({f"{k}_4S": v for k, v in big_row.items() if k != "bound_by"})
             del big, xb, t_big, lib
             rows.append(row)
-        del binv, W
+        del binv, W, operands
     return rows
 
 
@@ -2456,8 +2722,10 @@ def main() -> int:
     _, stencil_rel = phase_layer(args.seed, dev)
     counts_w, _ = phase_layer(args.seed, dev, precond="bf16_factored")
     torch.cuda.empty_cache()
-    counts_b = phase_bf16_forward(args.seed, dev)
+    counts_b, _ = phase_bf16_forward(args.seed, dev)
     torch.cuda.empty_cache()
+    long_rows, counts_long, long_steps = phase_long_window(args.seed, dev)
+    report.update(long_rows)
     counts = phase_trainer(dev)
     torch.cuda.empty_cache()
     phase_dense(dev)
@@ -2475,7 +2743,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t_new = time.perf_counter()
-    new_counts = {"krylov": counts_kry}
+    new_counts = {"krylov": counts_kry,
+                  **{f"long_window_{mode}": c for mode, c in counts_long.items()}}
     for name, evolution, opts in OPTION_PHASES:
         new_counts[name], opt_layer = phase_option(args.seed, dev, name, evolution, opts,
                                                    stencil_rel)
@@ -2498,6 +2767,7 @@ def main() -> int:
     point = "mech_nn_discovery_pde_torch/csrc/point_block.cu"
     tpu_fs = "mech_nn_discovery_pde_tpu/ops/fused_smoother.py"
     trainer, step_w, fwd_b = "GL trainer, 3 steps", "b30c4rmw layer step", "b30c4rm bf16 forward"
+    long_w = "long-window layer step ((50, 32, 32), bs 8), {} storage"
     transport = "transport multigrid example, 4 windows"
     kernels = [  # (name, source, TPU kernel, launch counts of its path, key)
         ("k1_stencil_apply", stencil, "mech_nn_discovery_pde_tpu/ops/normal_stencil.py:404",
@@ -2514,11 +2784,22 @@ def main() -> int:
          point_counts["bf16"], "k2_point_bf16"),
         ("k3_point_block_apply", point, f"{tpu_fs}:104", "point forward, bf16_factored storage",
          point_counts["bf16_factored"], "k3_point"),
+        ("k2_line_block_apply_panels", line, f"{tpu_fs}:128", long_w.format("f32"),
+         counts_long["f32"], "k2_panels"),
+        ("k2_line_block_apply_panels_bf16", line, f"{tpu_fs}:87",
+         long_w.format("bf16").replace("layer step", "forward"), counts_long["bf16"],
+         "k2_panels_bf16"),
+        ("k3_factored_line_block_apply_cluster", line, f"{tpu_fs}:104",
+         long_w.format("bf16_factored"), counts_long["bf16_factored"], "k3_cluster"),
     ]
-    # K2 and K3 also carry their wide-block numbers (phase 2d)
+    # each line-block kernel also carries the phase-2d rows of its route
+    entry_of = {("k2", "streamed"): "k2", ("k2_bf16", "streamed"): "k2_bf16",
+                ("k3", "streamed"): "k3", ("k2", "panels"): "k2_panels",
+                ("k2_bf16", "panels"): "k2_panels_bf16", ("k3", "cluster"): "k3_cluster"}
     wide_rows = {}
     for r in wide:
-        wide_rows.setdefault(r["kernel"], []).append({k: v for k, v in r.items() if k != "kernel"})
+        wide_rows.setdefault(entry_of[r["kernel"], r["route"]], []).append(
+            {k: v for k, v in r.items() if k != "kernel"})
     kernels = [dict(name=n, route="cuda", source=src, replaces=rep, launches=c.get(n, 0),
                     launches_in=path, **report[key],
                     **({"wide_blocks": wide_rows[key]} if key in wide_rows else {}))
@@ -2532,6 +2813,11 @@ def main() -> int:
         for p in ("parallel_sp2", "parallel_nccl_sp1"):
             if f"{kd['name']}_windowed" in new_counts[p]:
                 kd["launches_new_paths"][f"{p}_windowed"] = new_counts[p][f"{kd['name']}_windowed"]
+    for kd in kernels:
+        if kd["name"] == "k2_line_block_apply_panels":
+            kd["long_window_steps"] = {
+                mode: {k: v for k, v in st.items() if k not in ("counts", "top_kernels")}
+                for mode, st in long_steps.items()}
     for kd in kernels:
         if kd["launches"] == 0:
             raise AssertionError(f"{kd['name']} was not launched in the {kd['launches_in']}")

@@ -73,32 +73,83 @@
 // reads W[i, i+q], which is skewed by construction (at most 2-way).  r and u
 // are read at consecutive words.
 //
-// Row-tiled path (k2_line_block_apply_tiled, k3_factored_line_block_apply_tiled).
-// A block larger than one CTA's shared memory (bw > 240 in f32, > 339 in
-// bf16, > 337 for K3) streams through the same ring in panels of `rows`
-// consecutive block rows (rows x bw entries; the last panel of a block may
-// be shorter), with r's line resident in shared memory for the whole item
-// (double-buffered by item, loaded with the item's first panel).  K2: the
-// thread of panel row q computes block row p0 + q from each panel.  K3
-// sweeps the panels twice: sweep 1 accumulates u = W^T r into a bw-float
-// shared vector (thread q owns columns q, q + consumers, ...; a panel adds
-// its rows i <= j to column j), one named barrier, then sweep 2 streams the
-// panels again for t_i = sum_{j >= i} W[i, j] u_j (row p0 + q).  W is read
-// twice there, each time only its upper triangle.  Producer and consumers
-// walk the same sequence of panel loads, so the ring's stage and phase
-// parity advance per panel across both sweeps; r's buffer for item k is
-// rewritten only after the consumers released a panel of item k - 1, which
-// the launch check guarantees (panel loads per item >= stages).  The
-// geometry (rows, CTAs per SM, stages) comes from
-// ops/fused_smoother.line_block_geometry; every block that fits one CTA
-// takes the streamed path above, unchanged.
+// Row-tiled path.  A block larger than one CTA's shared memory (bw > 240 in
+// f32, > 339 in bf16, > 337 for K3) takes one of three kernels; which one
+// follows from the shape alone (`route_of`, mirrored by
+// ops/fused_smoother.line_block_route), and the launch geometry (`rows`,
+// CTAs, stages) comes from ops/fused_smoother.line_block_geometry.  Every
+// block that fits one CTA takes the streamed path above, unchanged.
+//   - K2: k2_line_block_apply_panels.  The unit of work is an (item, row
+//     panel) pair, not an item: the persistent CTAs walk the bs*S*panels
+//     units (unit c, c + grid, ...), so 128 blocks of bw 280 are 1,152
+//     units and every SM has work.  A stage holds one panel of `rows`
+//     (<= 24) consecutive block rows and r's line, which each unit gathers
+//     anew (4 / (rows * entry bytes) more bytes than the panel, read from
+//     L2: 4 % at 24 rows in f32).  Each consumer warp takes 4 panel rows:
+//     its 32 lanes split the columns (lane l reads columns l, l + 32, ...,
+//     so a warp-wide load is 32 consecutive entries of one row, without
+//     bank conflicts in f32 and bf16, and each r entry it loads serves the
+//     4 rows), and a transposed shuffle reduction (`warp_row_sums`: 6
+//     shuffles for 4 rows) leaves each row's sum on the lane that fetched
+//     its epilogue operands.  6 consumer warps a CTA, 3 CTAs an SM of 2
+//     stages each: 18 consumer warps an SM (tools/line_block_sweep.py
+//     compares the other geometries).
+//   - K3: k3_factored_line_block_apply_cluster.  W crosses device memory
+//     once: a thread-block cluster of C <= 8 CTAs (the portable limit)
+//     holds one block, CTA c its `rows` block rows from c * rows (the last
+//     CTA's range may be shorter: C = ceil(bw / rows)), and the cluster
+//     walks the items (cluster k takes k, k + clusters, ...), each CTA
+//     through its own ring.  Each item's sweeps wait on the cluster's
+//     slowest CTA, so a CTA's time per item is a chain of latencies more
+//     than bytes (tools/line_block_sweep.py at bw 350: about 10 us an item
+//     at 48 rows as at 88); hence a ring of one stage a CTA and up to 3
+//     CTAs an SM, whose chains overlap each other's loads, rather than
+//     one CTA an SM with several stages.  Sweep 1: each CTA forms its partial
+//     u_j = sum_{its rows i <= j} W[i, j] r_i for the columns j >= its
+//     first row (one thread per column, as the streamed K3's pass 1).  One
+//     consumer thread then signals the other CTAs (a remote mbarrier
+//     arrive, release at cluster scope), and each CTA, once the C - 1
+//     signals of the item have come (acquire at cluster scope), sums for
+//     each of its columns the partials of the CTAs whose rows start at or
+//     before it, reading the others' through distributed shared memory
+//     (mapa + ld.shared::cluster) in rank order, so every CTA holds the
+//     same u.  Sweep 2: t_i = sum_{j >= i} W[i, j] u_j from the rows still
+//     in shared memory, 4 rows a warp as in K2.  The partials are
+//     double-buffered by item: CTA c rewrites item k's buffer (at item
+//     k + 2) only after every other CTA's signal of item k + 1, which each
+//     sends after its reads of item k.  A cluster barrier follows the
+//     barriers' initialisation, and one precedes the CTAs' exit (no CTA
+//     leaves while another may read its shared memory).  The launcher caps
+//     the grid at the clusters that can be resident at once
+//     (cudaOccupancyMaxActiveClusters), so no cluster waits for another
+//     to end.
+//   - K3 at blocks too wide for 8 CTAs (bw > 916):
+//     k3_factored_line_block_apply_tiled, which streams the block's panels
+//     through one CTA twice.  Sweep 1 accumulates u = W^T r into a bw-float
+//     shared vector (thread q owns columns q, q + consumers, ...; a panel
+//     adds its rows i <= j to column j), one named barrier, then sweep 2
+//     streams the panels again for t_i = sum_{j >= i} W[i, j] u_j (panel
+//     row q).  W is read twice, each time only its upper triangle; r's line
+//     stays resident for the item (double-buffered by item, loaded with its
+//     first panel).  Producer and consumers walk the same sequence of panel
+//     loads, so the ring's stage and phase parity advance per panel across
+//     both sweeps; r's buffer for item k is rewritten only after the
+//     consumers released a panel of item k - 1, which the launch check
+//     guarantees (panel loads per item >= stages).
+// The panel and cluster kernels move every panel with one 1-D bulk copy
+// (`panel_copy`): the panel lands at stage + (its address mod 16), so the
+// copy takes its 16-byte-aligned interior and the lanes copy the head and
+// tail (under 16 bytes each) with 2-byte loads.  bf16 blocks of bw 350
+// (245,000 B, every other one 8-byte aligned) thus take the bulk copy too;
+// the consumers' 4- and 2-byte loads need no alignment beyond the entry's.
 //
 // Registers and shared memory (nvcc -Xptxas -v, sm_90a, CUDA 12.8 on the
 // H100 machine; chip_smoke.py checks the stack and spills): 48 registers a
-// thread for the three streamed kernels and 55-56 for the row-tiled ones, no
-// spills, no static shared memory; the dynamic shared memory is the geometry's (GL
-// shapes: 25,568 B for K2 f32, 13,024 B for K2 bf16, 13,472 B for K3 per
-// CTA).
+// thread for the three streamed kernels, 56 for the panel and cluster ones
+// and 55 for the two-sweep one, no spills, no static shared memory; the
+// dynamic shared memory is the geometry's (GL shapes: 25,568 B for K2 f32,
+// 13,024 B for K2 bf16, 13,472 B for K3 per CTA; bw 350: 70,080 B for K2
+// f32 on panels, 36,480 B in bf16, 66,912 B for K3 on a cluster).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -130,7 +181,7 @@ __host__ __device__ inline Layout make_layout(int bw, int stages, int esize, boo
   return L;
 }
 
-// ---- the row-tiled path's layout (line_block_smem_bytes with `rows` mirrors it)
+// ---- the two-sweep K3's layout (line_block_smem_bytes mirrors it)
 //   [full mbarriers: stages x 8 B][empty mbarriers: stages x 8 B]
 //   [u: 2 bw f32, K3 only, padded to 16 B][r: 2 bw f32, padded to 16 B]
 //   stages x [panel: rows*bw entries, padded to 16 B]
@@ -147,6 +198,59 @@ __host__ __device__ inline TiledLayout make_tiled_layout(int bw, int rows, int s
   L.stage_off = L.r_off + pad16(2 * sizeof(float) * (size_t)bw);
   L.total = L.stage_off + (size_t)stages * L.stage_bytes;
   return L;
+}
+
+// the row-tiled kernels' constants (ops/fused_smoother.py mirrors them)
+constexpr int kRowsPerWarp = 4;    // block rows a consumer warp sums at once
+constexpr int kPanelMaxRows = 24;  // panel kernel: 6 consumer warps at most
+constexpr int kClusterWarps = 8;   // cluster kernel: consumer warps a CTA
+constexpr int kMaxCluster = 8;     // CTAs a cluster: the portable limit
+
+// ---- the panel kernel's layout (line_block_smem_bytes mirrors it)
+//   [full mbarriers: stages x 8 B][empty mbarriers: stages x 8 B]
+//   stages x [panel: rows*bw entries, padded to 16 B, + 16 B for its shift]
+//            [r: bw f32, padded to 16 B]
+struct PanelLayout {
+  size_t stage_bytes, r_off, stage_off, total;
+};
+
+__host__ __device__ inline PanelLayout make_panel_layout(int bw, int rows, int stages, int esize) {
+  PanelLayout L;
+  L.r_off = pad16((size_t)rows * bw * esize) + 16;
+  L.stage_bytes = L.r_off + pad16(sizeof(float) * (size_t)bw);
+  L.stage_off = 16 * (size_t)stages;
+  L.total = L.stage_off + (size_t)stages * L.stage_bytes;
+  return L;
+}
+
+// ---- the cluster kernel's layout (line_block_smem_bytes mirrors it)
+//   [full mbarriers: stages x 8 B][empty mbarriers: stages x 8 B][ready: 2 x 8 B]
+//   [partial u: 2 x bw f32][u: bw f32][old d: 2 x rows f32], each padded to 16 B
+//   stages x [rows: rows*bw bf16, padded to 16 B, + 16 B for the shift]
+//            [r: rows f32, padded to 16 B]
+struct ClusterLayout {
+  size_t stage_bytes, r_off, part_off, u_off, dold_off, stage_off, total;
+};
+
+__host__ __device__ inline ClusterLayout make_cluster_layout(int bw, int rows, int stages) {
+  ClusterLayout L;
+  L.r_off = pad16((size_t)rows * bw * sizeof(__nv_bfloat16)) + 16;
+  L.stage_bytes = L.r_off + pad16(sizeof(float) * (size_t)rows);
+  L.part_off = 16 * (size_t)stages + 16;
+  L.u_off = L.part_off + pad16(2 * sizeof(float) * (size_t)bw);
+  L.dold_off = L.u_off + pad16(sizeof(float) * (size_t)bw);
+  L.stage_off = L.dold_off + pad16(2 * sizeof(float) * (size_t)rows);
+  L.total = L.stage_off + (size_t)stages * L.stage_bytes;
+  return L;
+}
+
+// which kernel a launch takes, from its shape alone
+enum Route { kStreamed, kPanels, kCluster, kTwoSweep };
+
+__host__ inline Route route_of(int bw, int rows, bool factored) {
+  if (rows >= bw) return kStreamed;
+  if (!factored) return kPanels;
+  return (bw + rows - 1) / rows <= kMaxCluster ? kCluster : kTwoSweep;
 }
 
 // ---- mbarrier, cp.async and bulk-copy primitives (sm_90)
@@ -224,6 +328,61 @@ __device__ __forceinline__ void bulk_g2s(void* dst, const void* src, uint32_t by
 // named barrier 1 over the consumer warps
 __device__ __forceinline__ void consumers_sync(int nthreads) {
   asm volatile("bar.sync 1, %0;" ::"r"(nthreads) : "memory");
+}
+
+// ---- thread-block cluster primitives (sm_90)
+struct ClusterPos {
+  uint32_t rank, size, id, count;  // this CTA's rank and the CTAs in its cluster; the
+                                   // cluster's index and the clusters in the grid (x)
+};
+
+__device__ __forceinline__ ClusterPos cluster_pos() {
+  ClusterPos c;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(c.rank));
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(c.size));
+  asm volatile("mov.u32 %0, %%clusterid.x;" : "=r"(c.id));
+  asm volatile("mov.u32 %0, %%nclusterid.x;" : "=r"(c.count));
+  return c;
+}
+
+// every thread of every CTA of the cluster (release, then acquire)
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive;\n\tbarrier.cluster.wait;" ::: "memory");
+}
+
+// the shared::cluster address of `p` (this CTA's shared memory) in CTA `rank`
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, uint32_t rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(a) : "r"(smem_addr(p)), "r"(rank));
+  return a;
+}
+
+__device__ __forceinline__ float ld_cluster(uint32_t a) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];" : "=f"(v) : "r"(a) : "memory");
+  return v;
+}
+
+// arrive on the mbarrier at `bar`'s offset in CTA `rank`, releasing this
+// thread's prior writes (and those ordered before them) at cluster scope
+__device__ __forceinline__ void mbar_arrive_remote(uint64_t* bar, uint32_t rank) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];" ::"r"(
+                   cluster_addr(bar, rank))
+               : "memory");
+}
+
+// wait for a phase completed by other CTAs' arrivals, acquiring at cluster scope
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_addr(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\tmbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n\tselp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
 }
 
 // the ring of either path: its barriers, its first stage and the layout
@@ -441,11 +600,11 @@ __global__ void k3_factored_line_block_apply(const __nv_bfloat16* __restrict__ w
   }
 }
 
-// ---- the row-tiled path
+// ---- the two-sweep K3 (blocks too wide for a cluster)
 
-// The row-tiled producer's in-kernel load path, for panels the bulk copy
-// cannot take (a block whose bytes are not a multiple of 16, e.g. bf16 at
-// bw 350: 245,000 B): each lane issues asynchronous copies in the widest
+// The two-sweep producer's in-kernel load path, for panels the bulk copy
+// cannot take (a block whose bytes are not a multiple of 16): each lane
+// issues asynchronous copies in the widest
 // unit (16, 8 or 4 bytes) that divides the panel's address and size, so a
 // panel's bytes are in flight at once, and arrives on `full` when its own
 // copies land; a panel aligned to 2 bytes only is copied with plain loads.
@@ -523,51 +682,289 @@ __device__ __forceinline__ void produce_tiled(const Ring<TiledLayout>& g, const 
   asm volatile("cp.async.wait_all;" ::: "memory");
 }
 
+// ---- the panel and cluster kernels
+
+// (the address of `p`) mod 16: where a panel copied from `p` starts in its
+// stage (`panel_copy`)
+__device__ __forceinline__ uint32_t panel_shift(const void* p) {
+  return (uint32_t)(reinterpret_cast<uintptr_t>(p) & 15);
+}
+
+// Producer warp: copy a panel of `bytes` (a multiple of 2) from global `src`
+// into the stage at `dst`, starting at dst + panel_shift(src), so that its
+// 16-byte-aligned interior lands 16-byte aligned: lane 0 expects and starts
+// one 1-D bulk copy of the interior, completing on `full`; the lanes copy the
+// head and the tail (under 16 bytes each) with 2-byte loads; every lane
+// arrives on `full` after its stores (lane 0 with the bulk copy's
+// expect_tx), 32 arrivals.
+__device__ __forceinline__ void panel_copy(unsigned char* dst, const void* src, uint32_t bytes,
+                                           int lane, uint64_t* full) {
+  const uint32_t shift = panel_shift(src);
+  const uint32_t head = min((16 - shift) & 15, bytes);
+  const uint32_t body = (bytes - head) & ~15u;
+  const uint16_t* s2 = reinterpret_cast<const uint16_t*>(src);
+  uint16_t* d2 = reinterpret_cast<uint16_t*>(dst + shift);
+  for (uint32_t e = lane; e < head / 2; e += 32) d2[e] = s2[e];
+  for (uint32_t e = (head + body) / 2 + lane; e < bytes / 2; e += 32) d2[e] = s2[e];
+  if (lane == 0 && body) {
+    mbar_arrive_expect_tx(full, body);
+    bulk_g2s(dst + shift + head, reinterpret_cast<const char*>(src) + head, body, full);
+  } else {
+    mbar_arrive(full);
+  }
+}
+
+// The sums over a warp's 32 lanes of its 4 row sums a0..a3: returns, at
+// lane l, the total of row (l >> 3) & 3.  A transposed reduction: the lane
+// pairs 16 apart swap two rows each, the pairs 8 apart one, then the eight
+// lanes of an octet hold one row and finish it in 3 steps (6 shuffles in
+// all, against 20 for four separate reductions).
+__device__ __forceinline__ float warp_row_sums(float a0, float a1, float a2, float a3, int lane) {
+  const bool h16 = lane & 16;
+  float k0 = h16 ? a2 : a0;
+  float k1 = h16 ? a3 : a1;
+  k0 += __shfl_xor_sync(0xffffffffu, h16 ? a0 : a2, 16);
+  k1 += __shfl_xor_sync(0xffffffffu, h16 ? a1 : a3, 16);
+  const bool h8 = lane & 8;
+  float v = h8 ? k1 : k0;
+  v += __shfl_xor_sync(0xffffffffu, h8 ? k0 : k1, 8);
+  v += __shfl_xor_sync(0xffffffffu, v, 4);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v;
+}
+
+// One consumer warp's 4 rows of a panel against a vector: lane l sums
+// columns c0 + l, c0 + l + 32, ... below bw of rows w0..w3 (row pointers
+// into shared memory) times v, then `warp_row_sums`
 template <typename TB>
-__global__ void k2_line_block_apply_tiled(const TB* __restrict__ binv,
-                                          const float* __restrict__ r, float* d,
-                                          const float* c1, const float* c2, int m, int nt,
-                                          int S, int items, int rows, int stages, int bulk) {
+__device__ __forceinline__ float warp_rows_dot(const TB* w0, const TB* w1, const TB* w2,
+                                               const TB* w3, const float* v, int c0, int bw,
+                                               int lane) {
+  float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+#pragma unroll 4
+  for (int c = c0 + lane; c < bw; c += 32) {
+    const float x = v[c];
+    a0 = fmaf(widen(w0[c]), x, a0);
+    a1 = fmaf(widen(w1[c]), x, a1);
+    a2 = fmaf(widen(w2[c]), x, a2);
+    a3 = fmaf(widen(w3[c]), x, a3);
+  }
+  return warp_row_sums(a0, a1, a2, a3, lane);
+}
+
+// block row i's offset within its line of the (bs, N, m) vectors
+__device__ __forceinline__ int line_row_off(int i, int m, int S) { return (i / m) * S * m + i % m; }
+
+// warp 0 of the panel kernel: fill the ring with this CTA's units (item,
+// panel): each stage gets r's line (4-byte cp.async, 32 arrivals) and the
+// panel (`panel_copy`, 32 arrivals)
+template <typename TB>
+__device__ __forceinline__ void produce_panels(const Ring<PanelLayout>& g,
+                                               const TB* __restrict__ blocks,
+                                               const float* __restrict__ r, int m, int nt, int S,
+                                               int units, int rows, int panels) {
+  const int lane = threadIdx.x;
+  const int bw = nt * m;
+  int stage = 0;
+  uint32_t round = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    if (round > 0) mbar_wait(&g.empty[stage], (round - 1) & 1);
+    const int it = u / panels;
+    const int p0 = (u - it * panels) * rows;
+    const int b = it / S;
+    const int s = it - b * S;
+    unsigned char* st = g.stage0 + (size_t)stage * g.L.stage_bytes;
+    float* rl = reinterpret_cast<float*>(st + g.L.r_off);
+    const float* rb = r + ((size_t)b * nt * S + s) * m;  // line s, block row 0
+    for (int j = lane; j < bw; j += 32) cp_async4(rl + j, rb + line_row_off(j, m, S));
+    cp_async_arrive_noinc(&g.full[stage]);
+    const int n = min(rows, bw - p0);
+    panel_copy(st, blocks + ((size_t)it * bw + p0) * bw, (uint32_t)((size_t)n * bw * sizeof(TB)),
+               lane, &g.full[stage]);
+    if (++stage == g.stages) {
+      stage = 0;
+      ++round;
+    }
+  }
+  // the warp leaves only once its own copies have landed
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+template <typename TB>
+__global__ void __launch_bounds__(32 + 32 * kPanelMaxRows / kRowsPerWarp, 3)
+    k2_line_block_apply_panels(const TB* __restrict__ binv, const float* __restrict__ r, float* d,
+                               const float* c1, const float* c2, int m, int nt, int S, int units,
+                               int rows, int stages) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int bw = nt * m;
   const int consumers = blockDim.x - 32;
-  const TiledLayout L = make_tiled_layout(bw, rows, stages, sizeof(TB), false);
-  const Ring<TiledLayout> g = ring_setup(smem, L, stages, consumers, bulk);
-  float* r2 = reinterpret_cast<float*>(smem + L.r_off);
+  const PanelLayout L = make_panel_layout(bw, rows, stages, sizeof(TB));
+  // full: 32 arrivals for r, 32 for the panel (bulk = false sets 32 + 32)
+  const Ring<PanelLayout> g = ring_setup(smem, L, stages, consumers, false);
+  const int panels = (bw + rows - 1) / rows;
   if (threadIdx.x < 32) {
-    produce_tiled<TB>(g, binv, r, r2, m, nt, S, items, rows, 1, bulk);
+    produce_panels<TB>(g, binv, r, m, nt, S, units, rows, panels);
     return;
   }
-  const int q = threadIdx.x - 32;  // row within a panel
-  // thread q starts at column q and wraps, as the streamed path's thread i
-  const auto skew = [q, bw](int c) {
-    const int j = q + c;
-    return j >= bw ? j - bw : j;
-  };
+  const int lane = threadIdx.x & 31;
+  const int q0 = ((threadIdx.x >> 5) - 1) * kRowsPerWarp;  // the warp's first panel row
+  const int q = q0 + (lane >> 3);                         // the row this lane ends with
+  const bool owner = (lane & 7) == 0;
   int stage = 0;
   uint32_t round = 0;
-  int k = 0;
-  for (int it = blockIdx.x; it < items; it += gridDim.x, ++k) {
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const int it = u / panels;
+    const int p0 = (u - it * panels) * rows;
     const int b = it / S;
     const int s = it - b * S;
-    const float* rl = r2 + (k & 1) * bw;
-    for (int p0 = 0; p0 < bw; p0 += rows) {
-      const int i = p0 + q;  // block row
-      const bool live = q < rows && i < bw;
-      Epilogue e{};
-      if (live) e = epilogue_fetch(d, c1, c2, b, s, (i / m) * S * m + i % m, m, nt, S);
+    const int n = min(rows, bw - p0);
+    const bool live = owner && q < n;
+    Epilogue e{};
+    if (live) e = epilogue_fetch(d, c1, c2, b, s, line_row_off(p0 + q, m, S), m, nt, S);
+    mbar_wait(&g.full[stage], round & 1);
+    const unsigned char* st = g.stage0 + (size_t)stage * L.stage_bytes;
+    const TB* pan =
+        reinterpret_cast<const TB*>(st + panel_shift(binv + ((size_t)it * bw + p0) * bw));
+    // a row past the panel's last is read (within the stage) and dropped
+    const auto row = [&](int k) { return pan + (size_t)min(q0 + k, n - 1) * bw; };
+    const float t = warp_rows_dot(row(0), row(1), row(2), row(3),
+                                  reinterpret_cast<const float*>(st + L.r_off), 0, bw, lane);
+    mbar_arrive(&g.empty[stage]);
+    if (live) epilogue_store(d, e, c1 != nullptr, t);
+    if (++stage == stages) {
+      stage = 0;
+      ++round;
+    }
+  }
+}
+
+// warp 0 of a cluster CTA: fill the ring with its rows [i0, i0 + n) of the
+// cluster's items, and their entries of r (4-byte cp.async, 32 arrivals)
+__device__ __forceinline__ void produce_cluster(const Ring<ClusterLayout>& g,
+                                                const __nv_bfloat16* __restrict__ w,
+                                                const float* __restrict__ r, int m, int nt, int S,
+                                                int items, int i0, int n, ClusterPos cp) {
+  const int lane = threadIdx.x;
+  const int bw = nt * m;
+  int stage = 0;
+  uint32_t round = 0;
+  for (int it = cp.id; it < items; it += cp.count) {
+    if (round > 0) mbar_wait(&g.empty[stage], (round - 1) & 1);
+    const int b = it / S;
+    const int s = it - b * S;
+    unsigned char* st = g.stage0 + (size_t)stage * g.L.stage_bytes;
+    float* rl = reinterpret_cast<float*>(st + g.L.r_off);
+    const float* rb = r + ((size_t)b * nt * S + s) * m;
+    for (int j = lane; j < n; j += 32) cp_async4(rl + j, rb + line_row_off(i0 + j, m, S));
+    cp_async_arrive_noinc(&g.full[stage]);
+    panel_copy(st, w + ((size_t)it * bw + i0) * bw,
+               (uint32_t)((size_t)n * bw * sizeof(__nv_bfloat16)), lane, &g.full[stage]);
+    if (++stage == g.stages) {
+      stage = 0;
+      ++round;
+    }
+  }
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+__global__ void __launch_bounds__(32 + 32 * kClusterWarps)
+    k3_factored_line_block_apply_cluster(const __nv_bfloat16* __restrict__ w,
+                                         const float* __restrict__ r, float* d, const float* c1,
+                                         const float* c2, int m, int nt, int S, int items,
+                                         int rows, int stages) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int bw = nt * m;
+  const int consumers = blockDim.x - 32;
+  const ClusterLayout L = make_cluster_layout(bw, rows, stages);
+  const ClusterPos cp = cluster_pos();
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* ready = bars + 2 * stages;  // the other CTAs' signals, by item parity
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < stages; ++k) {
+      mbar_init(&bars[k], 64);  // full: 32 arrivals for r, 32 for the rows
+      mbar_init(&bars[stages + k], consumers);
+    }
+    mbar_init(&ready[0], cp.size - 1);
+    mbar_init(&ready[1], cp.size - 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
+  // every CTA's barriers are initialised before any remote arrive
+  cluster_sync();
+  const Ring<ClusterLayout> g{bars, bars + stages, smem + L.stage_off, L, stages};
+  const int i0 = cp.rank * rows;      // this CTA's first block row
+  const int n = min(rows, bw - i0);  // its rows (the last CTA's may be fewer)
+  if (threadIdx.x < 32) {
+    produce_cluster(g, w, r, m, nt, S, items, i0, n, cp);
+  } else {
+    float* part = reinterpret_cast<float*>(smem + L.part_off);
+    float* u = reinterpret_cast<float*>(smem + L.u_off);
+    float* dold = reinterpret_cast<float*>(smem + L.dold_off);
+    const int q = threadIdx.x - 32;
+    const int lane = threadIdx.x & 31;
+    const int q0 = (q >> 5) * kRowsPerWarp;  // the warp's first row in sweep 2
+    const auto ident = [](int c) { return c; };
+    int stage = 0;
+    uint32_t round = 0;
+    int k = 0;
+    for (int it = cp.id; it < items; it += cp.count, ++k) {
+      const int b = it / S;
+      const int s = it - b * S;
+      const size_t line = ((size_t)b * nt * S + s) * m;
+      // d's old entries of this CTA's rows, and the coefficients, before the
+      // wait; dold and part alternate by item (the barriers of item k + 1
+      // order item k's reads before item k + 2's writes)
+      float* dk = dold + (k & 1) * rows;
+      float* pk = part + (k & 1) * bw;
+      const float a1 = c1 ? c1[b] : 0.f;
+      const float a2 = c2 ? c2[b] : 1.f;
+      if (c1)
+        for (int t = q; t < n; t += consumers) dk[t] = d[line + line_row_off(i0 + t, m, S)];
       mbar_wait(&g.full[stage], round & 1);
-      const TB* pan = reinterpret_cast<const TB*>(g.stage0 + (size_t)stage * g.L.stage_bytes);
-      float t = 0.f;
-      if (live) t = dot(pan + (size_t)q * bw, 1, rl, bw, skew);
+      const unsigned char* st = g.stage0 + (size_t)stage * L.stage_bytes;
+      const __nv_bfloat16* W = reinterpret_cast<const __nv_bfloat16*>(
+          st + panel_shift(w + ((size_t)it * bw + i0) * bw));  // row i0 + li at W + li * bw
+      const float* rl = reinterpret_cast<const float*>(st + L.r_off);
+      // sweep 1: this CTA's part of u_j = sum_{i <= j} W[i, j] r_i for the
+      // columns j >= i0 (thread per column, down to the diagonal)
+      for (int j = i0 + q; j < bw; j += consumers)
+        pk[j] = dot(W + j, bw, rl, min(n, j - i0 + 1), ident);
+      consumers_sync(consumers);
+      if (q == 0)
+        for (uint32_t c = 0; c < cp.size; ++c)
+          if (c != cp.rank) mbar_arrive_remote(&ready[k & 1], c);
+      mbar_wait_cluster(&ready[k & 1], (k >> 1) & 1);
+      // u_j: the partials of the CTAs whose rows start at or before j, in
+      // rank order (every CTA sums them alike)
+      for (int j = i0 + q; j < bw; j += consumers) {
+        const int last = min((int)cp.size - 1, j / rows);
+        float v = 0.f;
+        for (int c = 0; c <= last; ++c)
+          v += c == (int)cp.rank ? pk[j] : ld_cluster(cluster_addr(pk + j, c));
+        u[j] = v;
+      }
+      consumers_sync(consumers);
+      // sweep 2: t_i = sum_{j >= i} W[i, j] u_j, 4 rows a warp from the
+      // first one's diagonal (the others' entries left of theirs are zero)
+      for (int g0 = q0; g0 < n; g0 += consumers / 32 * kRowsPerWarp) {
+        const auto row = [&](int kk) { return W + (size_t)min(g0 + kk, n - 1) * bw; };
+        const float t = warp_rows_dot(row(0), row(1), row(2), row(3), u, i0 + g0, bw, lane);
+        const int li = g0 + (lane >> 3);
+        if ((lane & 7) == 0 && li < n) {
+          const Epilogue e{line + line_row_off(i0 + li, m, S), a1, a2, c1 ? dk[li] : 0.f};
+          epilogue_store(d, e, c1 != nullptr, t);
+        }
+      }
       mbar_arrive(&g.empty[stage]);
-      if (live) epilogue_store(d, e, c1 != nullptr, t);
       if (++stage == stages) {
         stage = 0;
         ++round;
       }
     }
   }
+  // no CTA leaves while another may still read its partials
+  cluster_sync();
 }
 
 __global__ void k3_factored_line_block_apply_tiled(const __nv_bfloat16* __restrict__ w,
@@ -641,7 +1038,9 @@ __global__ void k3_factored_line_block_apply_tiled(const __nv_bfloat16* __restri
 
 // Check the launch geometry against the shapes and the layout of the path
 // it takes (rows == nt * m: streamed; fewer: row-tiled); returns a CUDA
-// error code (0 if the launch may go ahead)
+// Check the launch geometry against the shapes and the layout of the kernel
+// it takes (`route_of`); returns a CUDA error code (0 if the launch may go
+// ahead)
 int check_launch(const void* blocks, int m, int nt, int S, int bs, int ctas, int rows,
                  int stages, int smem_bytes, int bulk, int esize, bool factored) {
   if (m < 1 || nt < 1 || S < 1 || bs < 1 || ctas < 1 || stages < 1 || rows < 1)
@@ -649,16 +1048,35 @@ int check_launch(const void* blocks, int m, int nt, int S, int bs, int ctas, int
   if ((long long)bs * S > 0x7fffffff || (long long)nt * S * m > 0x7fffffff)
     return (int)cudaErrorInvalidValue;  // item and row offsets are int
   const int bw = nt * m;
-  if (rows > bw || 32 + (rows + 31) / 32 * 32 > 1024) return (int)cudaErrorInvalidValue;
+  if (rows > bw) return (int)cudaErrorInvalidValue;
   const bool aligned = (reinterpret_cast<uintptr_t>(blocks) & 15) == 0;
-  if (rows == bw) {
-    const Layout L = make_layout(bw, stages, esize, factored);
-    if ((size_t)smem_bytes != L.total) return (int)cudaErrorInvalidValue;
-    if (bulk && (L.block_bytes % 16 != 0 || !aligned)) return (int)cudaErrorInvalidValue;
-    return 0;
+  const int panels = (bw + rows - 1) / rows;
+  switch (route_of(bw, rows, factored)) {
+    case kStreamed: {
+      const Layout L = make_layout(bw, stages, esize, factored);
+      if (32 + (rows + 31) / 32 * 32 > 1024 || (size_t)smem_bytes != L.total)
+        return (int)cudaErrorInvalidValue;
+      if (bulk && (L.block_bytes % 16 != 0 || !aligned)) return (int)cudaErrorInvalidValue;
+      return 0;
+    }
+    case kPanels:
+      // units (item, panel) are int; the panel's entries are 2-byte aligned
+      if (rows > kPanelMaxRows || (long long)bs * S * panels > 0x7fffffff ||
+          (reinterpret_cast<uintptr_t>(blocks) & 1) != 0 ||
+          (size_t)smem_bytes != make_panel_layout(bw, rows, stages, esize).total)
+        return (int)cudaErrorInvalidValue;
+      return 0;
+    case kCluster:
+      // whole clusters of C = panels CTAs
+      if (ctas % panels != 0 || (reinterpret_cast<uintptr_t>(blocks) & 1) != 0 ||
+          (size_t)smem_bytes != make_cluster_layout(bw, rows, stages).total)
+        return (int)cudaErrorInvalidValue;
+      return 0;
+    case kTwoSweep:
+      break;
   }
   // r's buffer for item k is rewritten once a panel of item k - 1 is released
-  if ((factored ? 2 : 1) * ((bw + rows - 1) / rows) < stages) return (int)cudaErrorInvalidValue;
+  if (32 + (rows + 31) / 32 * 32 > 1024 || 2 * panels < stages) return (int)cudaErrorInvalidValue;
   const TiledLayout L = make_tiled_layout(bw, rows, stages, esize, factored);
   if ((size_t)smem_bytes != L.total) return (int)cudaErrorInvalidValue;
   if (bulk && (((size_t)bw * bw * esize) % 16 != 0 || ((size_t)rows * bw * esize) % 16 != 0 ||
@@ -667,24 +1085,86 @@ int check_launch(const void* blocks, int m, int nt, int S, int bs, int ctas, int
   return 0;
 }
 
-// raise the kernel's dynamic shared-memory limit when the launch needs more
-// than the default 48 KiB (once per size and kernel), then launch it
-template <typename K, typename... Args>
-int launch(K kernel, int* allowed, int ctas, int threads, int smem_bytes, void* stream,
-           Args... args) {
+// raise a kernel's dynamic shared-memory limit when the launch needs more
+// than the default 48 KiB (once per size and kernel)
+template <typename K>
+cudaError_t allow_smem(K kernel, int* allowed, int smem_bytes) {
   if (smem_bytes > 48 * 1024 && smem_bytes > *allowed) {
     cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-    if (e != cudaSuccess) return (int)e;
+    if (e != cudaSuccess) return e;
     *allowed = smem_bytes;
   }
+  return cudaSuccess;
+}
+
+// raise the kernel's shared-memory limit if needed, then launch it
+template <typename K, typename... Args>
+int launch(K kernel, int* allowed, int ctas, int threads, int smem_bytes, void* stream,
+           Args... args) {
+  cudaError_t e = allow_smem(kernel, allowed, smem_bytes);
+  if (e != cudaSuccess) return (int)e;
   kernel<<<ctas, threads, smem_bytes, (cudaStream_t)stream>>>(args...);
   return (int)cudaGetLastError();
 }
 
-// K2 (FACTORED false, B^-1 in TB) or K3 (true, W in bf16): the streamed
-// kernel when a whole block is the ring's unit (rows == nt * m), else the
-// row-tiled one
+// the cluster kernel's launch configuration for `clusters` clusters of
+// `csize` CTAs (attr: the one attribute it needs, the cluster's shape)
+inline cudaLaunchConfig_t cluster_config(cudaLaunchAttribute* attr, int clusters, int csize,
+                                         int smem_bytes, void* stream) {
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = csize;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(csize * clusters);
+  cfg.blockDim = dim3(32 + 32 * kClusterWarps);
+  cfg.dynamicSmemBytes = smem_bytes;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// the clusters of `csize` CTAs of `smem_bytes` that the card holds at once
+// (cudaOccupancyMaxActiveClusters, asked once per cluster size and
+// shared-memory size); none is an error
+int active_clusters(int csize, int smem_bytes, int* n) {
+  static int allowed = 0, active[kMaxCluster + 1] = {}, active_smem[kMaxCluster + 1] = {};
+  if (csize < 2 || csize > kMaxCluster) return (int)cudaErrorInvalidValue;
+  if (active_smem[csize] != smem_bytes) {
+    cudaError_t e = allow_smem(k3_factored_line_block_apply_cluster, &allowed, smem_bytes);
+    if (e != cudaSuccess) return (int)e;
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg = cluster_config(attr, 1, csize, smem_bytes, nullptr);
+    e = cudaOccupancyMaxActiveClusters(&active[csize], k3_factored_line_block_apply_cluster,
+                                       &cfg);
+    if (e != cudaSuccess) return (int)e;
+    if (active[csize] < 1) return (int)cudaErrorInvalidConfiguration;
+    active_smem[csize] = smem_bytes;
+  }
+  *n = active[csize];
+  return 0;
+}
+
+// launch the cluster kernel in clusters of `csize` CTAs: at most `clusters`,
+// and no more than the card holds at once, so that no cluster of the
+// persistent grid waits for another to end
+template <typename... Args>
+int launch_cluster(int clusters, int csize, int smem_bytes, void* stream, Args... args) {
+  int active = 0;
+  const int code = active_clusters(csize, smem_bytes, &active);
+  if (code) return code;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      cluster_config(attr, min(clusters, active), csize, smem_bytes, stream);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, k3_factored_line_block_apply_cluster, args...);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// K2 (FACTORED false, B^-1 in TB) or K3 (true, W in bf16): the kernel of
+// `route_of` for the shape
 template <typename TB, bool FACTORED>
 int line_block_launch(const TB* blocks, const float* r, float* d, const float* c1,
                       const float* c2, int m, int nt, int S, int bs, int ctas, int rows,
@@ -693,23 +1173,28 @@ int line_block_launch(const TB* blocks, const float* r, float* d, const float* c
   int code = check_launch(blocks, m, nt, S, bs, ctas, rows, stages, smem_bytes, bulk,
                           sizeof(TB), FACTORED);
   if (code) return code;
-  const int threads = 32 + (rows + 31) / 32 * 32;
+  const int bw = nt * m;
   const int items = bs * S;
-  if (rows != nt * m) {
-    if constexpr (FACTORED)
-      return launch(k3_factored_line_block_apply_tiled, &allowed_tiled, ctas, threads,
-                    smem_bytes, stream, blocks, r, d, c1, c2, m, nt, S, items, rows, stages,
-                    bulk);
-    else
-      return launch(k2_line_block_apply_tiled<TB>, &allowed_tiled, ctas, threads, smem_bytes,
-                    stream, blocks, r, d, c1, c2, m, nt, S, items, rows, stages, bulk);
+  const int panels = (bw + rows - 1) / rows;
+  const Route route = route_of(bw, rows, FACTORED);
+  if constexpr (FACTORED) {
+    if (route == kCluster)
+      return launch_cluster(ctas / panels, panels, smem_bytes, stream, blocks, r, d, c1, c2, m,
+                            nt, S, items, rows, stages);
+    if (route == kTwoSweep)
+      return launch(k3_factored_line_block_apply_tiled, &allowed_tiled, ctas,
+                    32 + (rows + 31) / 32 * 32, smem_bytes, stream, blocks, r, d, c1, c2, m, nt,
+                    S, items, rows, stages, bulk);
+    return launch(k3_factored_line_block_apply, &allowed, ctas, 32 + (rows + 31) / 32 * 32,
+                  smem_bytes, stream, blocks, r, d, c1, c2, m, nt, S, items, stages, bulk);
+  } else {
+    if (route == kPanels)
+      return launch(k2_line_block_apply_panels<TB>, &allowed_tiled, ctas,
+                    32 + 32 * ((rows + kRowsPerWarp - 1) / kRowsPerWarp), smem_bytes, stream,
+                    blocks, r, d, c1, c2, m, nt, S, items * panels, rows, stages);
+    return launch(k2_line_block_apply<TB>, &allowed, ctas, 32 + (rows + 31) / 32 * 32,
+                  smem_bytes, stream, blocks, r, d, c1, c2, m, nt, S, items, stages, bulk);
   }
-  if constexpr (FACTORED)
-    return launch(k3_factored_line_block_apply, &allowed, ctas, threads, smem_bytes, stream,
-                  blocks, r, d, c1, c2, m, nt, S, items, stages, bulk);
-  else
-    return launch(k2_line_block_apply<TB>, &allowed, ctas, threads, smem_bytes, stream, blocks,
-                  r, d, c1, c2, m, nt, S, items, stages, bulk);
 }
 
 }  // namespace
@@ -717,8 +1202,8 @@ int line_block_launch(const TB* blocks, const float* r, float* d, const float* c
 extern "C" {
 
 // ctas, rows, stages, smem_bytes and bulk: the launch geometry of
-// ops/fused_smoother.line_block_geometry; rows < nt * m takes the row-tiled
-// path, rows == nt * m the streamed one
+// ops/fused_smoother.line_block_geometry; the kernel follows from the shape
+// (`route_of`): rows == nt * m the streamed one, else a row-tiled one
 int k2_line_block_apply_f32(const float* binv, const float* r, float* d, const float* c1,
                             const float* c2, int m, int nt, int S, int bs, int ctas, int rows,
                             int stages, int smem_bytes, int bulk, void* stream) {
@@ -742,6 +1227,15 @@ int k3_factored_line_block_apply_bf16(const __nv_bfloat16* w, const float* r, fl
                                       int bulk, void* stream) {
   return line_block_launch<__nv_bfloat16, true>(w, r, d, c1, c2, m, nt, S, bs, ctas, rows,
                                                  stages, smem_bytes, bulk, stream);
+}
+
+// the clusters of `csize` CTAs with `smem_bytes` of shared memory each that
+// the card holds at once (the cluster kernel's grid is capped at it); a
+// negative CUDA error code if the query fails
+int k3_cluster_occupancy(int csize, int smem_bytes) {
+  int n = 0;
+  const int code = active_clusters(csize, smem_bytes, &n);
+  return code ? -code : n;
 }
 
 const char* k2_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -20,7 +20,9 @@ TPU kernel's `factored=True`, `_emit_factored_block_apply`).  Both launch
 persistent CTAs that stream the blocks through a shared-memory ring; their
 launch geometry (`line_block_geometry`) is computed here from the shapes
 and the card's SM count.  A block too large for one CTA's shared memory
-takes the kernels' row-tiled path, which streams it in panels of rows.
+takes a row-tiled kernel: K2 the panel kernel (units of one item's panel
+of rows), K3 the cluster kernel (a thread-block cluster holds the block,
+so W is read once) or, past 8 CTAs' shared memory, the two-sweep one.
 
 The recurrence is the JAX package's (`MultigridSolver._smooth` chebyshev
 branch and `_fused_chebyshev_kernel`): Chebyshev over [lmax/ratio, lmax],
@@ -159,8 +161,8 @@ def block_apply(
     per-sample (bs,) tensors); else returns t.  CUDA tensors launch kernel
     K2 (its point-block kernel where `point_path(nt, bw)`); CPU tensors run
     the plain version.  K2 takes any bw: a block larger than one CTA's shared
-    memory (bw > 240 in float32, > 339 in bfloat16) streams in panels of
-    rows (`line_block_geometry`)."""
+    memory (bw > 240 in float32, > 339 in bfloat16) takes the panel kernel,
+    whose units are (item, panel of rows) pairs (`line_block_geometry`)."""
     if binv.is_cuda:
         kernels = _K2_FN.get(binv.dtype)
         if kernels is None:
@@ -187,8 +189,10 @@ def factored_block_apply(
 
     Contract: W is upper-triangular, with an exactly zero strict lower
     triangle (the solver stores L^-T with `.triu()`).  K3 reads only the
-    upper triangle; the plain version reads all of W.  K3 takes any bw; a
-    block with bw > 337 streams in panels of rows, twice (`block_apply`)."""
+    upper triangle; the plain version reads all of W.  K3 takes any bw: a
+    block with bw > 337 is held by a thread-block cluster of up to 8 CTAs,
+    which read W once (to bw 916), and a wider one streams in panels of
+    rows, twice (`line_block_geometry`)."""
     if w.is_cuda:
         if w.dtype != torch.bfloat16:
             raise ValueError(f"factored_block_apply: K3 takes a bfloat16 W, got {w.dtype}")
@@ -200,10 +204,11 @@ def factored_block_apply(
 
 class _Kernels(NamedTuple):
     """A block apply's launchers and launch-count names: the line kernels
-    (csrc/line_block.cu) and the point-block ones (csrc/point_block.cu)."""
+    (csrc/line_block.cu; one launcher, counted by the kernel its geometry's
+    route takes) and the point-block ones (csrc/point_block.cu)."""
 
     line_fn: str
-    line_counted: str
+    line_counted: dict
     point_fn: str
     point_counted: str
     factored: bool
@@ -211,12 +216,19 @@ class _Kernels(NamedTuple):
 
 # stored block dtype -> K2's kernels
 _K2_FN = {
-    torch.float32: _Kernels("k2_line_block_apply_f32", "k2_line_block_apply",
+    torch.float32: _Kernels("k2_line_block_apply_f32",
+                            {"streamed": "k2_line_block_apply",
+                             "panels": "k2_line_block_apply_panels"},
                             "k2_point_block_apply_f32", "k2_point_block_apply", False),
-    torch.bfloat16: _Kernels("k2_line_block_apply_bf16", "k2_line_block_apply_bf16",
+    torch.bfloat16: _Kernels("k2_line_block_apply_bf16",
+                             {"streamed": "k2_line_block_apply_bf16",
+                              "panels": "k2_line_block_apply_panels_bf16"},
                              "k2_point_block_apply_bf16", "k2_point_block_apply_bf16", False),
 }
-_K3_FN = _Kernels("k3_factored_line_block_apply_bf16", "k3_factored_line_block_apply",
+_K3_FN = _Kernels("k3_factored_line_block_apply_bf16",
+                  {"streamed": "k3_factored_line_block_apply",
+                   "cluster": "k3_factored_line_block_apply_cluster",
+                   "two_sweep": "k3_factored_line_block_apply_tiled"},
                   "k3_point_block_apply_bf16", "k3_point_block_apply", True)
 
 # Hopper SM shared memory: 227 KB a block may use, 228 KB an SM holds with
@@ -229,10 +241,24 @@ _SMEM_RESERVED = 1024
 # 2 stages let each CTA's next block load while one is computed on
 _CTAS_PER_SM = 8
 _STAGES = 2
-# the row-tiled path's panels: a multiple of 8 rows (so a panel's bytes are a
-# multiple of 16 and it takes the bulk copy), and the most CTAs per SM whose
-# panels still hold one full warp of rows
+# the row-tiled kernels' panels: a multiple of 8 rows (so a panel's bytes
+# are a multiple of 16)
 _PANEL_ROW_STEP = 8
+# the panel kernel (K2): a consumer warp per _ROWS_PER_WARP panel rows, at
+# most _PANEL_MAX_ROWS rows (6 consumer warps), _PANEL_CTAS_PER_SM CTAs an
+# SM of _PANEL_STAGES stages each (tools/line_block_sweep.py at bw 350, bs
+# 8 x 1024 lines, on an H100: the fastest geometry it tries in bf16, within
+# 4 % of the fastest in f32)
+_ROWS_PER_WARP = 4
+_PANEL_MAX_ROWS = 24
+_PANEL_CTAS_PER_SM = 3
+_PANEL_STAGES = 2
+# the cluster kernel (K3): at most _MAX_CLUSTER CTAs a cluster (the portable
+# limit), at most _CLUSTER_CTAS_PER_SM CTAs an SM, one stage each
+_MAX_CLUSTER = 8
+_CLUSTER_CTAS_PER_SM = 3
+# the two-sweep K3 (blocks too wide for a cluster): the most CTAs per SM
+# whose panels still hold one full warp of rows
 _PANEL_MIN_ROWS = 32
 
 
@@ -242,62 +268,196 @@ def _pad16(n: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class LineBlockGeometry:
-    """Launch geometry of K2/K3 (csrc/line_block.cu): `ctas` persistent CTAs
-    (one producer warp and ceil(panel_rows/32) consumer warps each), each
-    with a ring of `stages` stages in `smem_bytes` of dynamic shared memory;
-    CTA c takes the items (sample, line) c, c + ctas, ... of the bs*S items.
-    `panel_rows`: bw where a stage holds a whole block (the streamed path),
-    else the rows of the panels a block streams in (the row-tiled path).
-    `bulk`: each block or panel is moved by one 1-D bulk copy (its bytes a
-    multiple of 16); else the kernel's own load path copies it."""
+    """Launch geometry of K2/K3 (csrc/line_block.cu): `ctas` persistent CTAs,
+    each with a ring of `stages` stages in `smem_bytes` of dynamic shared
+    memory.  `route` names the kernel, which follows from the shape alone
+    (`line_block_route`):
+      "streamed"  (panel_rows == bw) a stage holds a whole block; one
+                  producer warp and ceil(bw/32) consumer warps; CTA c takes
+                  the items (sample, line) c, c + ctas, ... of the bs*S;
+      "panels"    K2 row-tiled: a stage holds a panel of `panel_rows` rows
+                  and r's line; one producer warp and a consumer warp per 4
+                  panel rows; CTA c takes the units (item, panel) c,
+                  c + ctas, ... of the bs*S*ceil(bw/panel_rows);
+      "cluster"   K3 row-tiled: clusters of `cluster` = ceil(bw/panel_rows)
+                  CTAs, CTA k of a cluster holding rows k*panel_rows, ... of
+                  its item's block (W read once); one producer and 8
+                  consumer warps; cluster c takes the items c, c + clusters,
+                  ... (the launcher caps the clusters at those resident at
+                  once);
+      "two_sweep" K3 at blocks too wide for a cluster: a stage holds a panel
+                  of `panel_rows` rows, streamed twice per item; one
+                  producer warp and ceil(panel_rows/32) consumer warps.
+    `bulk`: each block or panel is moved by one 1-D bulk copy (the panel and
+    cluster kernels: its 16-byte-aligned interior, at any alignment of the
+    entries); else the kernel's own load path copies it."""
 
     ctas: int
     stages: int
     smem_bytes: int
     bulk: bool
     panel_rows: int
+    route: str = "streamed"
+    cluster: int = 1
+
+
+def line_block_route(bw: int, rows: Optional[int], factored: bool) -> str:
+    """The kernel a launch of block width bw and `rows` takes (`route_of` in
+    line_block.cu): "streamed" where rows is None or bw, else "panels" for
+    K2, and for K3 "cluster" where ceil(bw / rows) <= _MAX_CLUSTER CTAs
+    hold the block, else "two_sweep"."""
+    if rows is None or rows >= bw:
+        return "streamed"
+    if not factored:
+        return "panels"
+    return "cluster" if -(-bw // rows) <= _MAX_CLUSTER else "two_sweep"
 
 
 def line_block_smem_bytes(bw: int, stages: int, entry_bytes: int, factored: bool,
                           rows: Optional[int] = None) -> int:
-    """The kernel's shared-memory layout.  Streamed path (`rows` None or bw;
-    `make_layout` in line_block.cu): 2 mbarriers per stage, K3's
+    """The shared-memory layout of the kernel `line_block_route` picks.
+    Streamed (`make_layout` in line_block.cu): 2 mbarriers per stage, K3's
     double-buffered f32 u, and per stage the block and r's line, each padded
-    to 16 bytes.  Row-tiled path (rows < bw; `make_tiled_layout`): the
-    mbarriers, K3's u, r's line double-buffered, and per stage a panel of
-    `rows` block rows."""
-    u = _pad16(2 * 4 * bw) if factored else 0
-    if rows is None or rows >= bw:
+    to 16 bytes.  Panels (`make_panel_layout`): the mbarriers, and per stage
+    a panel of `rows` block rows padded to 16 bytes plus 16 for its shift,
+    and r's line.  Cluster (`make_cluster_layout`, bf16): the mbarriers and
+    2 more, the double-buffered partial u (bw f32), u, d's old entries of
+    the CTA's rows (double-buffered), and per stage the CTA's rows (plus 16
+    bytes) and their r.  Two-sweep (`make_tiled_layout`): the mbarriers,
+    K3's u, r's line double-buffered, and per stage a panel of `rows`."""
+    route = line_block_route(bw, rows, factored)
+    if route == "streamed":
+        u = _pad16(2 * 4 * bw) if factored else 0
         stage = _pad16(bw * bw * entry_bytes) + _pad16(4 * bw)
         return 16 * stages + u + stages * stage
-    return 16 * stages + u + _pad16(2 * 4 * bw) + stages * _pad16(rows * bw * entry_bytes)
+    if route == "panels":
+        return 16 * stages + stages * (_pad16(rows * bw * entry_bytes) + 16 + _pad16(4 * bw))
+    if route == "cluster":
+        stage = _pad16(rows * bw * 2) + 16 + _pad16(4 * rows)
+        return (16 * stages + 16 + _pad16(2 * 4 * bw) + _pad16(4 * bw) + _pad16(2 * 4 * rows)
+                + stages * stage)
+    return _two_sweep_smem_bytes(bw, rows, stages, entry_bytes)
 
 
-def _panel_rows(bw: int, stages: int, entry_bytes: int, factored: bool, budget: int) -> int:
+def _two_sweep_smem_bytes(bw: int, rows: int, stages: int, entry_bytes: int) -> int:
+    return (16 * stages + _pad16(2 * 4 * bw) + _pad16(2 * 4 * bw)
+            + stages * _pad16(rows * bw * entry_bytes))
+
+
+def _most_stages(bw, rows, entry_bytes, factored, budget, most):
+    """The most stages (<= most) of the layout at `rows` within budget; 0 if
+    not even one fits."""
+    stages = most
+    while stages and line_block_smem_bytes(bw, stages, entry_bytes, factored, rows) > budget:
+        stages -= 1
+    return stages
+
+
+def _panel_geometry(bs, S, bw, entry_bytes, n_sm):
+    """K2's panel kernel: the most rows (a multiple of _PANEL_ROW_STEP, at
+    most _PANEL_MAX_ROWS) at which _PANEL_CTAS_PER_SM CTAs an SM hold
+    _PANEL_STAGES stages each, then 2 CTAs, then 1; a block too wide for 8
+    rows (about bw > 3,200 in f32) takes fewer rows, then 1 stage."""
+    def fits(rows, stages):
+        return _most_stages(bw, rows, entry_bytes, False, budget, stages) == stages
+
+    for per_sm in range(_PANEL_CTAS_PER_SM, 0, -1):
+        budget = min(_SMEM_PER_SM // per_sm - _SMEM_RESERVED, _SMEM_PER_BLOCK)
+        rows = next((r for r in range(_PANEL_MAX_ROWS, 0, -_PANEL_ROW_STEP)
+                     if fits(r, _PANEL_STAGES)), 0)
+        if rows:
+            break
+    else:
+        rows = next((r for want in (_PANEL_STAGES, 1) for r in range(_PANEL_ROW_STEP - 1, 0, -1)
+                     if fits(r, want)), 0)
+        if not rows:
+            raise ValueError(f"line_block_geometry: bw={bw} leaves no room for a panel row")
+    stages = _most_stages(bw, rows, entry_bytes, False, budget, _PANEL_STAGES)
+    units = bs * S * -(-bw // rows)
+    return LineBlockGeometry(ctas=min(units, n_sm * per_sm), stages=stages,
+                             smem_bytes=line_block_smem_bytes(bw, stages, entry_bytes, False, rows),
+                             bulk=True, panel_rows=rows, route="panels")
+
+
+def _cluster_geometry(bs, S, bw, n_sm):
+    """K3's cluster kernel, or None where no cluster of _MAX_CLUSTER CTAs
+    holds the block.  A CTA computes one item at a time, and each item's
+    sweeps wait on the cluster's slowest CTA, so a CTA's time per item is
+    latency more than bytes: one stage a CTA (its next item loads while the
+    other CTAs on its SM compute), the most CTAs an SM (at most
+    _CLUSTER_CTAS_PER_SM), and at that the smallest cluster C (rows a
+    multiple of 8, at least bw / C), so the most clusters are resident.  At
+    bw 350: C 4 of 88 rows (67 KB), 3 CTAs an SM."""
+    for per_sm in range(_CLUSTER_CTAS_PER_SM, 0, -1):
+        budget = min(_SMEM_PER_SM // per_sm - _SMEM_RESERVED, _SMEM_PER_BLOCK)
+        for c in range(2, _MAX_CLUSTER + 1):
+            rows = _PANEL_ROW_STEP * -(-bw // (_PANEL_ROW_STEP * c))
+            smem = line_block_smem_bytes(bw, 1, 2, True, rows)
+            if rows < bw and smem <= budget:
+                cluster = -(-bw // rows)
+                return LineBlockGeometry(ctas=cluster * min(bs * S, n_sm * per_sm // cluster),
+                                         stages=1, smem_bytes=smem, bulk=True, panel_rows=rows,
+                                         route="cluster", cluster=cluster)
+    return None
+
+
+def _two_sweep_rows(bw: int, stages: int, entry_bytes: int, budget: int) -> int:
     """The most panel rows (< bw; a multiple of _PANEL_ROW_STEP where that
-    leaves any) whose layout fits `budget` bytes; 0 if none."""
-    fixed = line_block_smem_bytes(bw, stages, entry_bytes, factored, rows=0)
+    leaves any) whose two-sweep layout fits `budget` bytes; 0 if none."""
+    fixed = _two_sweep_smem_bytes(bw, 0, stages, entry_bytes)
     rows = min(bw - 1, max(0, (budget - fixed) // (stages * bw * entry_bytes)))
     if rows >= _PANEL_ROW_STEP:
         rows -= rows % _PANEL_ROW_STEP
-    while rows > 0 and line_block_smem_bytes(bw, stages, entry_bytes, factored, rows) > budget:
+    while rows > 0 and _two_sweep_smem_bytes(bw, rows, stages, entry_bytes) > budget:
         rows -= 1
     return rows
+
+
+def _two_sweep_geometry(bs, S, bw, entry_bytes, n_sm):
+    """The two-sweep K3: _STAGES stages of panels, the most CTAs per SM
+    whose panels hold _PANEL_MIN_ROWS rows (else one CTA, and one stage if
+    two do not fit)."""
+    stages = _STAGES
+    for per_sm in range(_CTAS_PER_SM, 0, -1):
+        budget = min(_SMEM_PER_SM // per_sm - _SMEM_RESERVED, _SMEM_PER_BLOCK)
+        rows = _two_sweep_rows(bw, stages, entry_bytes, budget)
+        if rows >= _PANEL_MIN_ROWS:
+            break
+    if rows < 1:
+        stages = 1
+        rows = _two_sweep_rows(bw, stages, entry_bytes, _SMEM_PER_BLOCK)
+    if rows < 1:
+        raise ValueError(f"line_block_geometry: bw={bw} leaves no room for a panel row")
+    if line_block_route(bw, rows, True) != "two_sweep":
+        raise ValueError(f"line_block_geometry: bw={bw} two-sweep panels of {rows} rows would "
+                         "take the cluster kernel")
+    bulk = bw * bw * entry_bytes % 16 == 0 and rows * bw * entry_bytes % 16 == 0
+    return LineBlockGeometry(ctas=min(bs * S, n_sm * per_sm), stages=stages,
+                             smem_bytes=_two_sweep_smem_bytes(bw, rows, stages, entry_bytes),
+                             bulk=bulk, panel_rows=rows, route="two_sweep")
 
 
 @functools.lru_cache(maxsize=64)
 def line_block_geometry(bs: int, S: int, bw: int, entry_bytes: int, n_sm: int,
                         factored: bool = False) -> LineBlockGeometry:
     """Choose K2/K3's launch geometry for bs*S blocks of bw x bw entries of
-    `entry_bytes` on a card of `n_sm` SMs: _CTAS_PER_SM CTAs of _STAGES
-    stages each, fewer CTAs per SM where shared memory does not hold them,
-    then one stage.  A block that does not fit one CTA's shared memory
-    (227 KB; bw > 240 in f32, > 339 in bf16, > 337 for K3) takes the
-    row-tiled path: _STAGES stages of panels, the most CTAs per SM whose
-    panels hold _PANEL_MIN_ROWS rows (else one CTA, and one stage if two do
-    not fit).  Raises ValueError for a bad shape, and for a bw so large that
-    r's line (and K3's u) leave no room for one row: above about 12,900 for
-    K3, 19,300 for K2 in f32."""
+    `entry_bytes` on a card of `n_sm` SMs.  A block that fits one CTA's
+    shared memory (227 KB; bw <= 240 in f32, <= 339 in bf16, <= 337 for K3)
+    takes the streamed kernels: _CTAS_PER_SM CTAs of _STAGES stages each,
+    fewer CTAs per SM where shared memory does not hold them, then one
+    stage.  A wider block takes a row-tiled kernel, by shape alone
+    (`line_block_route`; no launch falls back to another):
+      - K2: the panel kernel (`_panel_geometry`: panels of 24 rows or fewer,
+        3 CTAs an SM where each holds 2 stages; 24 rows at bw 280 and 350,
+        f32 and bf16);
+      - K3: the cluster kernel where at most 8 CTAs hold a block
+        (`_cluster_geometry`: one stage a CTA, the most CTAs an SM up to 3,
+        then the smallest cluster; bw 350: 4 CTAs of 88 rows, 3 an SM),
+        which is up to bw 916 (8 CTAs, one an SM); a wider block takes the
+        two-sweep kernel (`_two_sweep_geometry`), which reads W twice.
+    Raises ValueError for a bad shape, and for a bw so large that r's line
+    (and K3's u) leave no room for one row: above about 12,900 for K3,
+    19,300 for K2 in f32."""
     if min(bs, S, bw, entry_bytes, n_sm) < 1:
         raise ValueError(f"line_block_geometry: bad shape bs={bs} S={S} bw={bw} n_sm={n_sm}")
     per_sm, stages = _CTAS_PER_SM, _STAGES
@@ -316,22 +476,10 @@ def line_block_geometry(bs: int, S: int, bw: int, entry_bytes: int, n_sm: int,
         return LineBlockGeometry(ctas=min(bs * S, n_sm * per_sm), stages=stages,
                                  smem_bytes=smem(stages), bulk=bw * bw * entry_bytes % 16 == 0,
                                  panel_rows=bw)
-    stages = _STAGES
-    for per_sm in range(_CTAS_PER_SM, 0, -1):
-        budget = min(_SMEM_PER_SM // per_sm - _SMEM_RESERVED, _SMEM_PER_BLOCK)
-        rows = _panel_rows(bw, stages, entry_bytes, factored, budget)
-        if rows >= _PANEL_MIN_ROWS:
-            break
-    if rows < 1:
-        stages = 1
-        rows = _panel_rows(bw, stages, entry_bytes, factored, _SMEM_PER_BLOCK)
-    if rows < 1:
-        raise ValueError(f"line_block_geometry: bw={bw} leaves no room for a panel row")
-    bulk = bw * bw * entry_bytes % 16 == 0 and rows * bw * entry_bytes % 16 == 0
-    return LineBlockGeometry(ctas=min(bs * S, n_sm * per_sm), stages=stages,
-                             smem_bytes=line_block_smem_bytes(bw, stages, entry_bytes, factored,
-                                                              rows),
-                             bulk=bulk, panel_rows=rows)
+    if not factored:
+        return _panel_geometry(bs, S, bw, entry_bytes, n_sm)
+    return (_cluster_geometry(bs, S, bw, n_sm)
+            or _two_sweep_geometry(bs, S, bw, entry_bytes, n_sm))
 
 
 # point blocks: the widths csrc/point_block.cu instantiates (n_mi of
@@ -451,7 +599,7 @@ def _launch_line_block(kernels, blocks, r, nt, d, c1, c2):
         m, nt, S, bs, geom.ctas, geom.panel_rows, geom.stages, geom.smem_bytes, int(bulk),
         stream,
     )
-    _cuda.check("line_block", kernels.line_counted, code)
+    _cuda.check("line_block", kernels.line_counted[geom.route], code)
     return d
 
 

@@ -20,6 +20,8 @@ The kernels themselves run only on the card; chip_smoke.py holds them
 against these plain versions there.
 """
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -425,6 +427,43 @@ def test_stored_w_is_exactly_upper_triangular(gl_level):
     assert torch.equal(w, w.triu())
     wj = tfs.line_blocks_from_jax(g["w_fused"], g["nt"], g["m"], "fused")
     assert torch.equal(wj, wj.triu())
+
+
+@pytest.mark.parametrize("factored", [False, True], ids=["k2", "k3"])
+@pytest.mark.parametrize("nt", [40, 50])
+def test_wide_line_block_plain_matches_jax(nt, factored):
+    """At the widths of the row-tiled kernels (bw 280 and 350: nt 40 and 50
+    at m 7), K2's and K3's plain versions equal the JAX package's line-block
+    route (`MultigridSolver._block_apply` with its `line_vec_to_blocks` /
+    `line_blocks_to_vec`, per sample) in f64 within 1e-10, on random blocks
+    (upper-triangular for K3) of bs 2 and S 4 lines, with and without the
+    Chebyshev epilogue."""
+    m, bs, S = 7, 2, 4
+    bw = nt * m
+    rng = np.random.default_rng(nt + 100 * factored)
+    blocks = rng.standard_normal((bs, S, bw, bw)) / bw
+    if factored:
+        blocks = np.triu(blocks)
+    r = rng.standard_normal((bs, nt * S * m))
+    x0 = rng.standard_normal((bs, nt * S * m))
+    # the JAX route reads only the line layout (coord_dims, n_mi) of its
+    # system and the solver's block-smoother options
+    var_set = types.SimpleNamespace(coord_dims=(nt, 2, 2), n_mi=m)
+    sysk = types.SimpleNamespace(var_set=var_set)
+    sysk.line_vec_to_blocks = lambda v, axis=0: JaxSystem.line_vec_to_blocks(sysk, v, axis)
+    sysk.line_blocks_to_vec = lambda z, axis=0: JaxSystem.line_blocks_to_vec(sysk, z, axis)
+    solver = types.SimpleNamespace(config=types.SimpleNamespace(mg_block_smoother="line"),
+                                   _factored_binv=factored)
+    want = np.stack([np.asarray(JaxSolver._block_apply(solver, sysk, jnp.asarray(blocks[b]),
+                                                       jnp.asarray(r[b]))) for b in range(bs)])
+    plain = tfs.factored_block_apply_plain if factored else tfs.block_apply_plain
+    tb, tr = torch.tensor(blocks), torch.tensor(r)
+    assert rel(plain(tb, tr, nt), want) <= 1e-10
+    c1, c2 = torch.tensor([0.5, -2.0], dtype=torch.float64), torch.tensor([3.0, 0.25],
+                                                                          dtype=torch.float64)
+    d = torch.tensor(x0)
+    plain(tb, tr, nt, d=d, c1=c1, c2=c2)
+    assert rel(d, c1[:, None].numpy() * x0 + c2[:, None].numpy() * want) <= 1e-10
 
 
 def test_k3_plain_factored_apply_matches_jax(gl_level):

@@ -2,9 +2,11 @@
 computed in Python by `ops.fused_smoother.line_block_geometry` and passed to
 the kernels: shared memory within a Hopper SM's, bytes in flight at the GL
 shapes, the 1-D bulk copy chosen only for blocks whose bytes are a multiple
-of 16, and blocks too large for one CTA's shared memory streamed in panels
-of rows (the row-tiled path).  The kernels themselves run only on the card
-(chip_smoke.py holds them against their plain versions there)."""
+of 16, and blocks too large for one CTA's shared memory on the row-tiled
+kernels their width gives (K2 on (item, panel) units, K3 on a thread-block
+cluster or, past 8 CTAs, in two sweeps), each block row computed once.  The
+kernels themselves run only on the card (chip_smoke.py holds them against
+their plain versions there)."""
 
 import numpy as np
 import pytest
@@ -63,13 +65,15 @@ def test_line_block_geometry_keeps_bytes_in_flight(case):
                          ids=["k2-f32", "k2-bf16", "k3"])
 def test_line_block_geometry_rejects_what_does_not_fit(largest, eb, factored):
     """The largest block each kernel stages whole runs one CTA of one stage
-    on the streamed path; one more row and column takes the row-tiled path,
-    whose stages fit one CTA's shared memory.  A bad shape still raises."""
+    on the streamed path; one more row and column takes a row-tiled kernel
+    (K2 the panel kernel, K3 the cluster kernel), whose stages fit one
+    CTA's shared memory.  A bad shape still raises."""
     geo = fs.line_block_geometry(1, 1, largest, eb, H100_SMS, factored)
     assert geo.stages == 1 and geo.smem_bytes <= SMEM_PER_BLOCK
-    assert geo.panel_rows == largest
+    assert geo.panel_rows == largest and geo.route == "streamed"
     wide = fs.line_block_geometry(1, 1, largest + 1, eb, H100_SMS, factored)
     assert 1 <= wide.panel_rows < largest + 1
+    assert wide.route == ("cluster" if factored else "panels")
     assert wide.smem_bytes == fs.line_block_smem_bytes(largest + 1, wide.stages, eb, factored,
                                                        wide.panel_rows)
     assert wide.smem_bytes <= SMEM_PER_BLOCK
@@ -79,41 +83,129 @@ def test_line_block_geometry_rejects_what_does_not_fit(largest, eb, factored):
 
 WIDE = {
     # bs, S, bw, entry bytes, factored: chip_smoke.py's wide-block shapes
-    # (bw 280 = nt 40 x m 7 and bw 350 = nt 50 x m 7), and a very wide block
+    # (bw 280 = nt 40 x m 7 and bw 350 = nt 50 x m 7, at 64 lines and at the
+    # long-window layer's fine level, 1024 lines of bs 8; bw 345 and 406:
+    # K3 clusters of 4 and 6 CTAs; bw 980: K3 past the cluster), the K3
+    # dispatch edges, and a very wide block
     "bw280-k2-f32": (2, 64, 280, 4, False),
     "bw350-k2-f32": (2, 64, 350, 4, False),
     "bw350-k2-bf16": (2, 64, 350, 2, False),
     "bw350-k3": (2, 64, 350, 2, True),
+    "long-window-k2-f32": (8, 1024, 350, 4, False),
+    "long-window-k2-bf16": (8, 1024, 350, 2, False),
+    "long-window-k3": (8, 1024, 350, 2, True),
     "bw241-k2-f32": (2, 64, 241, 4, False),
+    "bw345-k3": (2, 6, 345, 2, True),
+    "bw406-k3": (2, 6, 406, 2, True),
+    "bw980-k2-f32": (2, 2, 980, 4, False),
+    "bw980-k3": (2, 2, 980, 2, True),
+    "bw512-k3": (1, 3, 512, 2, True),
+    "bw513-k3": (1, 3, 513, 2, True),
+    "bw640-k3": (1, 3, 640, 2, True),
+    "bw641-k3": (1, 3, 641, 2, True),
+    "bw916-k3": (1, 2, 916, 2, True),
+    "bw917-k3": (1, 2, 917, 2, True),
     "bw2000-k3": (1, 2, 2000, 2, True),
+    "bw4000-k2-f32": (1, 2, 4000, 4, False),
 }
+
+
+def _row_cover(geo, bs, S, bw):
+    """How often each (item, block row) is computed by the CTAs' walk
+    (csrc/line_block.cu): the panel kernel's CTA c takes the units (item,
+    panel) c, c + ctas, ...; the cluster kernel's cluster k the items k,
+    k + clusters, ..., its CTA j the rows j * rows, ... of each; the
+    two-sweep kernel's CTA c the items c, c + ctas, ..., all panels."""
+    rows, items = geo.panel_rows, bs * S
+    seen = np.zeros((items, bw), dtype=np.int64)
+    if geo.route == "panels":
+        panels = -(-bw // rows)
+        for c in range(geo.ctas):
+            for u in range(c, items * panels, geo.ctas):
+                it, p = divmod(u, panels)
+                seen[it, p * rows:min(bw, (p + 1) * rows)] += 1
+    elif geo.route == "cluster":
+        clusters = geo.ctas // geo.cluster
+        for k in range(clusters):
+            for it in range(k, items, clusters):
+                for j in range(geo.cluster):
+                    seen[it, j * rows:min(bw, (j + 1) * rows)] += 1
+    else:
+        for c in range(geo.ctas):
+            for it in range(c, items, geo.ctas):
+                seen[it] += 1
+    return seen
 
 
 @pytest.mark.parametrize("case", list(WIDE))
 def test_line_block_geometry_tiles_wide_blocks(case):
-    """The row-tiled path: panels of fewer rows than the block, as many CTAs
-    per SM as shared memory holds, a consumer warp per 32 panel rows within
-    the 1024 threads of a CTA, enough panel loads per item that r's
-    double buffer is never rewritten early (csrc/line_block.cu
-    check_launch), and the bulk copy only where every block and panel
-    is a multiple of 16 bytes."""
+    """The row-tiled kernels: fewer rows a stage than the block; shared
+    memory as the kernel lays it out, within one CTA's and, for the CTAs
+    that share an SM, within the SM's; the route `line_block_route` gives
+    for the shape; every (item, block row) computed exactly once by the
+    CTAs' walk.  Panel kernel (K2): at most 24 rows, a consumer warp per 4,
+    whole units of 16 bytes a stage so every stage (and its r) starts
+    16-byte aligned, and room for a panel shifted by up to 15 bytes (the
+    bulk copy of its aligned interior).  Cluster kernel (K3): C = ceil(bw /
+    rows) <= 8 CTAs hold the block (C rows >= bw), each some rows, whole
+    clusters.  Two-sweep kernel: a consumer warp per 32 panel rows, enough
+    panel loads per item that r's double buffer is never rewritten early,
+    and the bulk copy only where every block and panel is a multiple of 16
+    bytes."""
     bs, S, bw, eb, factored = WIDE[case]
     geo = fs.line_block_geometry(bs, S, bw, eb, H100_SMS, factored)
     rows = geo.panel_rows
     assert 1 <= rows < bw
+    assert geo.route == fs.line_block_route(bw, rows, factored)
     assert geo.smem_bytes == fs.line_block_smem_bytes(bw, geo.stages, eb, factored, rows)
     assert geo.smem_bytes <= SMEM_PER_BLOCK
-    assert -(-geo.ctas // H100_SMS) * (geo.smem_bytes + 1024) <= SMEM_PER_SM
-    assert 1 <= geo.ctas <= bs * S
-    assert 32 + -(-rows // 32) * 32 <= 1024
-    assert (2 if factored else 1) * -(-bw // rows) >= geo.stages
-    assert geo.bulk == (bw * bw * eb % 16 == 0 and rows * bw * eb % 16 == 0)
-    if rows >= 32:
-        # the panels fill the shared memory of the CTAs that share an SM:
-        # one more row would not fit (or would cost one full warp of rows)
-        per_sm = SMEM_PER_SM // (geo.smem_bytes + 1024)
-        bigger = fs.line_block_smem_bytes(bw, geo.stages, eb, factored, rows + 8)
-        assert rows + 8 >= bw or per_sm * (bigger + 1024) > SMEM_PER_SM
+    assert geo.stages >= 1
+    if geo.route == "panels":
+        assert not factored and rows <= 24 and (rows % 8 == 0 or bw > 3000)
+        assert 1 <= geo.ctas <= bs * S * -(-bw // rows)
+        per_sm = -(-geo.ctas // H100_SMS)
+        assert per_sm * (geo.smem_bytes + 1024) <= SMEM_PER_SM
+        assert 32 + 32 * -(-rows // 4) <= 224 and geo.bulk
+        stage = (geo.smem_bytes - 16 * geo.stages) // geo.stages
+        assert stage % 16 == 0 and stage - 4 * bw >= rows * bw * eb + 15
+        if rows % 8 == 0 and rows < 24:
+            # 8 more rows would not leave each CTA of the SM 2 stages
+            bigger = fs.line_block_smem_bytes(bw, 2, eb, False, rows + 8)
+            assert per_sm * (bigger + 1024) > SMEM_PER_SM
+    elif geo.route == "cluster":
+        assert factored and eb == 2 and geo.bulk
+        C = geo.cluster
+        assert 2 <= C <= 8 and C == -(-bw // rows) and C * rows >= bw > (C - 1) * rows
+        assert geo.stages == 1 and geo.ctas % C == 0
+        per_sm = -(-geo.ctas // H100_SMS)
+        assert 1 <= geo.ctas // C <= min(bs * S, 3 * H100_SMS // C)
+        assert per_sm <= 3 and per_sm * (geo.smem_bytes + 1024) <= SMEM_PER_SM
+        if bs * S >= H100_SMS:
+            # the most CTAs an SM: one more would not fit
+            assert per_sm == 3 or (per_sm + 1) * (geo.smem_bytes + 1024) > SMEM_PER_SM
+    else:
+        assert geo.route == "two_sweep" and factored
+        assert -(-bw // rows) > 8
+        assert 1 <= geo.ctas <= bs * S
+        assert -(-geo.ctas // H100_SMS) * (geo.smem_bytes + 1024) <= SMEM_PER_SM
+        assert 32 + -(-rows // 32) * 32 <= 1024
+        assert 2 * -(-bw // rows) >= geo.stages
+        assert geo.bulk == (bw * bw * eb % 16 == 0 and rows * bw * eb % 16 == 0)
+    if bs * S * bw <= 64 * 64 * 350:
+        assert (_row_cover(geo, bs, S, bw) == 1).all()
+
+
+@pytest.mark.parametrize("bw,route", [(337, "streamed"), (338, "cluster"), (916, "cluster"),
+                                      (917, "two_sweep")])
+def test_k3_dispatch_edge(bw, route):
+    """K3's kernel follows from the width alone, with the edges the
+    geometry's docstring states: the streamed kernel to bw 337, a cluster
+    of up to 8 CTAs (W read once) to bw 916, the two-sweep kernel above,
+    at any batch."""
+    for bs, S in ((1, 1), (8, 1024)):
+        assert fs.line_block_geometry(bs, S, bw, 2, H100_SMS, True).route == route
+    doc = " ".join(fs.line_block_geometry.__doc__.split())
+    assert "<= 337 for K3" in doc and "up to bw 916" in doc
 
 
 # ---- the point-block kernels (csrc/point_block.cu): nt == 1, bw = n_mi
@@ -187,17 +279,19 @@ class _FakeLib:
         self.calls = calls
 
     def __getattr__(self, fn):
-        return lambda *args: self.calls.append((fn, len(args))) or 0
+        return lambda *args: self.calls.append((fn, len(args), args)) or 0
 
 
 @pytest.mark.parametrize("nt,m", [(1, 2), (1, 3), (1, 4), (1, 5), (1, 7), (8, 7), (6, 5),
-                                  (2, 7), (1, 42)])
+                                  (2, 7), (1, 42), (40, 7), (50, 7)])
 def test_block_apply_dispatch(nt, m, monkeypatch):
     """The launcher picks the point-block kernels exactly for nt == 1 at the
     widths they instantiate, which are the n_mi of every VariableSet layout
     (the solver's time lines span at least 6 positions, its point blocks
     one), and the line kernels for every nt > 1, with the argument count
-    of the C launcher it calls."""
+    of the C launcher it calls, the geometry's launch arguments, and the
+    launch counted under the kernel of its route (at bw 280 and 350 the
+    row-tiled ones)."""
     import torch
 
     from mech_nn_discovery_pde_torch.ops import _cuda
@@ -223,8 +317,18 @@ def test_block_apply_dispatch(nt, m, monkeypatch):
                               None, None)
         lib = "point_block" if point else "line_block"
         fn = kernels.point_fn if point else kernels.line_fn
-        counted = kernels.point_counted if point else kernels.line_counted
-        assert calls == [(fn, len(_cuda._SIGNATURES[lib][fn])), (lib, counted)]
+        (called, n_args, args), counted_call = calls
+        assert (called, n_args) == (fn, len(_cuda._SIGNATURES[lib][fn]))
+        if point:
+            assert counted_call == (lib, kernels.point_counted)
+            continue
+        geo = fs.line_block_geometry(bs, S, bw, torch.empty((), dtype=dtype).element_size(),
+                                     H100_SMS, kernels.factored)
+        assert args[5:14] == (m, nt, S, bs, geo.ctas, geo.panel_rows, geo.stages,
+                              geo.smem_bytes, int(geo.bulk))
+        assert counted_call == (lib, kernels.line_counted[geo.route])
+        assert (geo.route != "streamed") == (bw > {torch.float32: 240, bf16: 339}[dtype]
+                                             if not kernels.factored else bw > 337)
 
 
 def _bank_ways(byte_addrs):
