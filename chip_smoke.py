@@ -27,9 +27,13 @@ plain PyTorch version:
      computing the same function (K1: a CSR sparse product; K2: one bmm;
      K3: two bmm on an f32 copy of W, as no single call computes W (W^T r));
      the stored W's strict lower triangle must be exactly zero at both
-     levels (K3 reads only the upper one); then K2 (f32 and bf16 blocks)
-     and K3 with their epilogues at the odd shape bw 42 (the kernels' other
-     load path); then K1 at the five (n_coord, order) layouts GL does not
+     levels (K3 reads only the upper one); then (2b) K2 (f32 and bf16
+     blocks) and K3 with and without their epilogues (1e-5) at the mid and
+     unaligned widths bw 21, 30, 35, 42, 63, 105, 133, 175, 217 and 238 and at
+     bw 56 on blocks off 16-byte alignment, each launch's route and geometry
+     logged (every block by a bulk copy: of the whole block where all are
+     16-byte aligned, else of its aligned interior); then K1 at the five
+     (n_coord, order) layouts GL does not
      run, in f32, f64 and bf16 fields with its epilogues, at bs 3 (one
      point a thread) and at bs 2 x SMs (16-byte loads); K1 f64 also beside
      its plain version and a float64 CSR sparse product at both levels;
@@ -60,15 +64,20 @@ plain PyTorch version:
      bf16-operand variants (K1, K2) launched; rel_rnorm is printed with no
      bar (the mode is quality-fatal at GL scale);
  5b. the long-window layer step: (50, 32, 32) patches, bs 8, n_grid 3 with
-     downsample_first=True (fine-level time lines of bw 350: the row-tiled
-     kernels; level 1 bw 175: streamed; the coarsest a dense solve), the
-     b30c4rm settings, in f32 storage (K2 on panels) and 'bf16_factored'
-     (K3 on a cluster) with phase 3's timing core (launches by kernel and
-     by level: the row-tiled kernels only at level 0; step median, min,
-     max; profile; finite gradients; rel_rnorm at most 5.0e-3), its peak
-     memory, and each fine-level kernel at the step's own blocks against
-     its plain version (1e-5) and timed; then one 'bf16' forward (K2 bf16
-     on panels at level 0);
+     downsample_first=True (fine-level time lines of bw 350, level 1 bw
+     175: the kernels ops/fused_smoother.line_block_geometry routes them
+     to; the coarsest a dense solve), the b30c4rm settings, in f32 storage
+     (K2 on panels at both levels) and 'bf16_factored' (K3 on a cluster at
+     both levels) with phase 3's timing core (launches by kernel and by
+     level, each level's kernels those of LONG_BLOCK_KERNEL; the block
+     applies' device ms by level, from CUDA events, level 1's beside the
+     streamed kernels' 866.0 and 789.0 ms before the mid-width redesign;
+     step median, min, max; profile; finite gradients; rel_rnorm at most
+     5.0e-3), its peak memory, and the kernel of each level at the step's
+     own blocks against its plain version (1e-5), timed alone, back to back
+     and in a CUDA graph beside its bound, plain version and bmm (two for
+     K3); then one 'bf16' forward (K2 bf16 on panels at level 0, streamed
+     at level 1) and its kernels at both levels likewise;
   6. trainer: 3 Adam steps of GLDiscovery.loss_fn at the GLConfig defaults
      on GL data generated into data/;
   7. dense path: entry()'s f32_ir forward (Burgers (32, 32), bs 10) within
@@ -150,7 +159,9 @@ plain PyTorch version:
  20. one JSON line {"kernels": [...]} with each kernel's numbers and the
      launch counts of the run that drives it ("launches_in"; the row-tiled
      K2 f32, K2 bf16 and K3 kernels are entries of their own, on the
-     long-window path, with its steps' numbers under "long_window_steps");
+     long-window path, with its steps' numbers under "long_window_steps";
+     so are the kernels of its level 1, at bw 175, with their launches
+     there);
      K1 and K1
      bf16 also carry their level-1 numbers ("*_level1") and K1 its f64
      ones ("f64_*"); K1 f64 is also an entry of its own, counted on the
@@ -635,37 +646,65 @@ def phase_kernels(layer, hier, values, dev, seed):
     return report
 
 
-def phase_odd_shape(dev, seed, bs=2, nt=6, m=7, S=144):
-    """Phase 2b: K2 (f32 and bf16 blocks) and K3 with their epilogues against
-    the plain versions on random blocks at bw 42 (the CPU tests' (6, 12, 12)
-    systems): the f32 blocks (7,056 B) take the bulk copy, the bf16 ones
-    (3,528 B, not a multiple of 16) the kernels' own load path."""
+# phase 2b's shapes (nt, m, S): bw 42 (the CPU tests' (6, 12, 12) systems;
+# bf16 blocks of 3,528 B, 8 mod 16) and 30 (m 5; bf16 1,800 B, 8 mod 16),
+# then the odd widths 21 to 133 (blocks off 16 bytes in f32 and bf16) and
+# 175, 217, 238 (the long window's level 1 and wider: the row-tiled kernels
+# since the streamed ring no longer holds 2 stages in 2 CTAs an SM)
+ODD_SHAPES = ((6, 7, 144), (6, 5, 144), (3, 7, 144), (5, 7, 144), (9, 7, 144), (15, 7, 96),
+              (19, 7, 64), (25, 7, 48), (31, 7, 32), (34, 7, 32))
+
+
+def phase_odd_shape(dev, seed, bs=2):
+    """Phase 2b: K2 (f32 and bf16 blocks) and K3 against their plain
+    versions, with and without the Chebyshev epilogue (1e-5), on random
+    blocks at the mid widths and unaligned blocks of ODD_SHAPES, and at bw 56
+    on blocks 4 (f32) or 2 (bf16) bytes off 16-byte alignment: every block
+    reaches shared memory by a bulk copy (of the whole block where all are
+    16-byte aligned, else of its aligned interior, `panel_copy`).  Each
+    launch logs its route and geometry (walk, whole or shifted copy) and
+    must launch its route's kernel twice and nothing else."""
     from mech_nn_discovery_pde_torch.ops import _cuda
     from mech_nn_discovery_pde_torch.ops import fused_smoother as fs
 
     g = torch.Generator(device=dev).manual_seed(seed + 2)
-    bw = nt * m
-    n = nt * S * m
-    x = torch.randn((bs, n), generator=g, device=dev)
-    b = torch.randn((bs, n), generator=g, device=dev)
-    c1 = torch.rand((bs,), generator=g, device=dev)
-    c2 = torch.rand((bs,), generator=g, device=dev)
-    B = torch.randn((bs, S, bw, bw), generator=g, device=dev)
-    W = torch.randn((bs, S, bw, bw), generator=g, device=dev).triu().to(torch.bfloat16)
-    log(f"odd shape: bs {bs}, nt {nt}, m {m}, S {S} -> {S} lines x {bw}^2")
-    cases = (("K2 f32", fs.block_apply, fs.block_apply_plain, B, False),
-             ("K2 bf16", fs.block_apply, fs.block_apply_plain, B.to(torch.bfloat16), False),
-             ("K3", fs.factored_block_apply, fs.factored_block_apply_plain, W, True))
-    for name, kern, plain, blocks, factored in cases:
-        geo = fs.line_block_geometry(bs, S, bw, blocks.element_size(), _cuda.sm_count(dev),
-                                     factored)
-        log(f"  {name}: {geo.ctas} CTAs, {geo.stages} stages, {geo.smem_bytes} B shared, "
-            f"{'bulk copy' if geo.bulk else 'in-kernel load path'}")
-        check(f"{name} apply (bw {bw})", rel_err(kern(blocks, x, nt), plain(blocks, x, nt)), 1e-5)
-        d_k, d_p = b.clone(), b.clone()
-        kern(blocks, x, nt, d=d_k, c1=c1, c2=c2)
-        plain(blocks, x, nt, d=d_p, c1=c1, c2=c2)
-        check(f"{name} Chebyshev epilogue (bw {bw})", rel_err(d_k, d_p), 1e-5)
+    n_sm = _cuda.sm_count(dev)
+    for nt, m, S in ODD_SHAPES + ((8, 7, 64),):
+        bw = nt * m
+        off = (nt, m, S) == (8, 7, 64)
+        n = nt * S * m
+        x = torch.randn((bs, n), generator=g, device=dev)
+        b = torch.randn((bs, n), generator=g, device=dev)
+        c1 = torch.rand((bs,), generator=g, device=dev)
+        c2 = torch.rand((bs,), generator=g, device=dev)
+        B = torch.randn((bs, S, bw, bw), generator=g, device=dev)
+        W = torch.randn((bs, S, bw, bw), generator=g, device=dev).triu().to(torch.bfloat16)
+        cases = (("K2 f32", fs.block_apply, fs.block_apply_plain, B, False),
+                 ("K2 bf16", fs.block_apply, fs.block_apply_plain, B.to(torch.bfloat16), False),
+                 ("K3", fs.factored_block_apply, fs.factored_block_apply_plain, W, True))
+        for name, kern, plain, blocks, factored in cases:
+            if off:  # the same blocks one entry into a larger buffer
+                buf = torch.empty(blocks.numel() + 1, dtype=blocks.dtype, device=dev)
+                buf[1:] = blocks.reshape(-1)
+                blocks = buf[1:].view(blocks.shape)
+            eb = blocks.element_size()
+            geo = fs.line_block_geometry(bs, S, bw, eb, n_sm, factored)
+            smem, flags = fs.line_block_launch_args(geo, bw, eb, factored, blocks.data_ptr())
+            kernels = fs._K3_FN if factored else fs._K2_FN[blocks.dtype]
+            label = (f"{name} bw {bw} (nt {nt}, m {m}, {S} lines"
+                     f"{', blocks off 16-byte alignment' if off else ''})")
+            copy = ("" if geo.route != "streamed" else
+                    ", whole-block copies" if flags & 1 else ", shifted copies (panel_copy)")
+            log(f"  {label}: {geo.route} ({kernels.line_counted[geo.route]}), {geo.ctas} CTAs, "
+                f"{geo.stages} stages, {geo.panel_rows} rows, {smem} B shared, walk {geo.walk}"
+                f"{copy}")
+            _cuda.LAUNCHES.clear()
+            check_line_kernel(label, kern, plain, blocks, x, b, c1, c2, nt)
+            torch.cuda.synchronize()
+            if dict(_cuda.LAUNCHES) != {kernels.line_counted[geo.route]: 2}:
+                raise AssertionError(f"{label}: launches {dict(_cuda.LAUNCHES)}, want 2 of "
+                                     f"{kernels.line_counted[geo.route]}")
+        del B, W, x, b
     torch.cuda.synchronize()
 
 
@@ -873,13 +912,20 @@ def kernel_counts(prof):
 
 # the layer step's kernels of the time-line block apply, by storage mode; no
 # other block kernel may launch.  The GL step's 56-wide blocks take the
-# streamed kernels; the long window's fine level (bw 350) the row-tiled ones
+# streamed kernels
 BLOCK_KERNEL = {"f32": ("k2_line_block_apply",),
                 "bf16_factored": ("k3_factored_line_block_apply",)}
-LONG_BLOCK_KERNEL = {"f32": ("k2_line_block_apply_panels", "k2_line_block_apply"),
-                     "bf16_factored": ("k3_factored_line_block_apply_cluster",
-                                       "k3_factored_line_block_apply"),
-                     "bf16": ("k2_line_block_apply_panels_bf16", "k2_line_block_apply_bf16")}
+# the long window's, by storage mode and level: the fine level's blocks (bw
+# 350) take the row-tiled kernels; level 1's (bw 175) the panel kernel in
+# f32 (streamed only to bw 137), the streamed kernel in bf16 (one CTA of 3
+# stages an SM) and the cluster kernel for K3 (clusters of 2 CTAs of 2
+# stages; streamed only to bw 168): ops/fused_smoother.line_block_geometry
+LONG_BLOCK_KERNEL = {"f32": {0: ("k2_line_block_apply_panels",),
+                             1: ("k2_line_block_apply_panels",)},
+                     "bf16_factored": {0: ("k3_factored_line_block_apply_cluster",),
+                                       1: ("k3_factored_line_block_apply_cluster",)},
+                     "bf16": {0: ("k2_line_block_apply_panels_bf16",),
+                              1: ("k2_line_block_apply_bf16",)}}
 
 
 def b30c4rm_layer(dev, precond="f32", bs=32, dims=(8, 32, 32), n_grid=3, evolution=False,
@@ -905,19 +951,29 @@ def b30c4rm_layer(dev, precond="f32", bs=32, dims=(8, 32, 32), n_grid=3, evoluti
 
 
 @contextlib.contextmanager
-def launches_by_level(layer):
+def launches_by_level(layer, timed=False):
     """The block applies' launches by the level they run on: wraps the
     layer's solver's `_block_apply(k, ...)` for the duration and yields
-    {level: Counter of the launches it made}."""
+    {level: Counter of the launches it made}; with `timed`, also
+    {"ms": {level: device milliseconds}}, from CUDA events around each
+    apply, read once the block exits (an apply queued behind other work is
+    timed from that work's end, so the events time the kernel alone where
+    the stream is busy)."""
     from mech_nn_discovery_pde_torch.ops import _cuda
 
     mg = layer.mg_solver
-    levels = {}
+    levels, events = {}, []
     block_apply = mg._block_apply
 
     def counted(k, lvl, r, **epilogue):
         before = dict(_cuda.LAUNCHES)
+        if timed:
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
         out = block_apply(k, lvl, r, **epilogue)
+        if timed:
+            e1.record()
+            events.append((k, e0, e1))
         c = levels.setdefault(k, collections.Counter())
         for n, v in _cuda.LAUNCHES.items():
             if v != before.get(n, 0):
@@ -929,6 +985,12 @@ def launches_by_level(layer):
         yield levels
     finally:
         del mg._block_apply
+        if timed:
+            torch.cuda.synchronize()
+            ms = collections.Counter()
+            for k, e0, e1 in events:
+                ms[k] += e0.elapsed_time(e1)
+            levels["ms"] = dict(ms)
 
 
 def grad_step(layer, c0, r0, i0, steps):
@@ -961,14 +1023,16 @@ def time_layer_step(layer, c0, r0, i0, steps, label, blocks, rel_bar=3.1e-3,
     torch.cuda.synchronize()
     log(f"{label}: warm-up step {time.perf_counter() - t0:.3f} s")
     _cuda.LAUNCHES.clear()
-    with launches_by_level(layer) as by_level:
+    with launches_by_level(layer, timed=True) as by_level:
         stats, grads = grad_step(layer, c0, r0, i0, steps)
         torch.cuda.synchronize()
+    level_ms = by_level.pop("ms")
     counts = dict(_cuda.LAUNCHES)
     its = stats["iters"].tolist()
     rel = stats["rel_rnorm"]
     log(f"{label}: step launches {counts}; block applies by level "
-        f"{ {k: dict(v) for k, v in sorted(by_level.items())} }; forward FGMRES iters "
+        f"{ {k: dict(v) for k, v in sorted(by_level.items())} }, their device ms by level "
+        f"{ {k: round(v, 3) for k, v in sorted(level_ms.items())} }; forward FGMRES iters "
         f"{sorted(set(its))}, rel_rnorm max {float(rel.max()):.4e} mean {float(rel.mean()):.4e}")
     stray = [n for n in counts if n.startswith(("k2_", "k3_")) and n not in blocks]
     if any(counts.get(n, 0) == 0 for n in blocks) or stray:
@@ -1020,7 +1084,8 @@ def time_layer_step(layer, c0, r0, i0, steps, label, blocks, rel_bar=3.1e-3,
         if not want and c != 0:
             raise AssertionError(f"profiler shows {c} launches of {n} in the {label}")
     return dict(counts=counts, by_level={k: dict(v) for k, v in by_level.items()},
-                rel_rnorm=float(rel.max()), iters=sorted(set(its)), step_s_median=dt,
+                block_ms_by_level=level_ms, rel_rnorm=float(rel.max()),
+                iters=sorted(set(its)), step_s_median=dt,
                 step_s_min=ts[0], step_s_max=ts[-1], device_busy_s=busy_us / 1e6,
                 idle_share=idle, device_ms=device_ms,
                 top_kernels=[(n[:90], us / 1e3, c) for n, (us, c) in top[:6]])
@@ -1928,7 +1993,8 @@ def phase_bf16_forward(seed, dev, bs=32, dims=(8, 32, 32), downsample_first=Fals
     with the launch counts cleared just before and read just after: K1's
     bf16-field variant and K2's bf16 one must launch (phase 5b: the
     kernels `level_blocks` gives each level, and no other block kernel
-    there).  Returns the launch counts of that forward and the layer."""
+    there).  Returns the launch counts of that forward, the layer and the
+    block applies' launches by level."""
     from mech_nn_discovery_pde_torch.ops import _cuda
 
     layer = b30c4rm_layer(dev, "bf16", bs, dims, downsample_first=downsample_first)
@@ -1956,26 +2022,26 @@ def phase_bf16_forward(seed, dev, bs=32, dims=(8, 32, 32), downsample_first=Fals
         if set(by_level.get(k, {})) != set(want):
             raise AssertionError(f"bf16 forward: level {k} block applies "
                                  f"{dict(by_level.get(k, {}))}, want {want}")
-    return counts, layer
+    return counts, layer, {k: dict(v) for k, v in by_level.items()}
 
 
-def fine_level_kernel(layer, c0, r0, i0, steps, mode, seed, dev):
-    """The long-window fine level's row-tiled kernel at the main path's
-    shapes: the blocks the layer's hierarchy stores (bw 350, bs x 1024
-    lines; B^-1 in f32 or bf16, or W), against its plain version with and
-    without the epilogue (1e-5) and its bmm yardstick, then timed
-    (`time_line_kernel`)."""
+def level_kernel(layer, c0, r0, i0, steps, mode, seed, dev, level=0):
+    """The long-window layer's block kernel at one level at the main path's
+    shapes: the blocks the layer's hierarchy stores there (bw 350, bs x 1024
+    lines at the fine level; bw 175, bs x 256 lines at level 1; B^-1 in f32
+    or bf16, or W), against its plain version with and without the epilogue
+    (1e-5) and its bmm yardstick, then timed (`time_line_kernel`)."""
     from mech_nn_discovery_pde_torch.ops import _cuda
     from mech_nn_discovery_pde_torch.ops import fused_smoother as fs
 
     with torch.no_grad():
         _, _, hier = layer._prepare(c0, r0, i0, steps)
-    blocks = hier["levels"][0]["binv"]
+    blocks = hier["levels"][level]["binv"]
     del hier
-    nt = layer.mg_solver.dim_list[0][0]
+    nt = layer.mg_solver.dim_list[level][0]
     bs, S, bw, _ = blocks.shape
     m, n = bw // nt, nt * S * (bw // nt)
-    g = torch.Generator(device=dev).manual_seed(seed + 6)
+    g = torch.Generator(device=dev).manual_seed(seed + 6 + level)
     x = torch.randn((bs, n), generator=g, device=dev)
     b = torch.randn((bs, n), generator=g, device=dev)
     c1 = torch.rand((bs,), generator=g, device=dev)
@@ -1984,16 +2050,18 @@ def fine_level_kernel(layer, c0, r0, i0, steps, mode, seed, dev):
     name, _, kern, plain, _ = line_kernels()[2 if factored else 1 if mode == "bf16" else 0]
     geo = fs.line_block_geometry(bs, S, bw, blocks.element_size(), _cuda.sm_count(dev),
                                  factored)
-    label = f"{name} ({geo.route}) on the long-window fine level (bs {bs}, {S} lines of {bw}^2)"
+    label = (f"{name} ({geo.route}) on the long window's "
+             f"{'fine level' if level == 0 else f'level {level}'} (bs {bs}, {S} lines of {bw}^2)")
     resident = resident_clusters(geo) if geo.route == "cluster" else None
     log(f"  {label}: {geo}" + (f"; {resident} clusters resident at once" if resident else ""))
     t_k, err = check_line_kernel(label, kern, plain, blocks, x, b, c1, c2, nt)
     lib, to_vec = block_library_call(blocks, x, nt, m, factored)
     check(f"{label} {'two-bmm' if factored else 'bmm'} yardstick", rel_err(to_vec(lib()), t_k),
           1e-5)
-    row = dict(max_abs_err=err, bw=bw, lines=S, bs=bs, path=geo.route,
-               panel_rows=geo.panel_rows, cluster=geo.cluster, stages=geo.stages, ctas=geo.ctas,
-               resident_clusters=resident)
+    kernels = fs._K3_FN if factored else fs._K2_FN[blocks.dtype]
+    row = dict(kernel=kernels.line_counted[geo.route], max_abs_err=err, bw=bw, lines=S, bs=bs,
+               path=geo.route, panel_rows=geo.panel_rows, cluster=geo.cluster,
+               stages=geo.stages, ctas=geo.ctas, resident_clusters=resident)
     row.update(time_line_kernel(label, lambda: kern(blocks, x, nt, d=t_k),
                                 lambda: plain(blocks, x, nt), lib, blocks, bs * n, factored))
     return row
@@ -2006,21 +2074,31 @@ def fine_level_kernel(layer, c0, r0, i0, steps, mode, seed, dev):
 LONG_REL_BAR = 5.0e-3
 
 
+# the block applies' device ms a long-window step at level 1 with the
+# streamed kernels of the parent design (bw 175 blocks copied by one warp's
+# plain loads; NVIDIA H100 80GB HBM3, 700.00 W), beside which phase 5b
+# prints this design's
+LEVEL1_BEFORE_MS = {"f32": 866.0, "bf16_factored": 789.0}
+
+
 def phase_long_window(seed, dev, bs=8, dims=(50, 32, 32)):
     """Phase 5b: the GL layer step with a long time window, (50, 32, 32)
     patches at n_grid 3 with MultigridLayer's default downsample_first=True
     (levels (50, 32, 32), (25, 16, 16), (12, 8, 8): time-line blocks of bw
-    350 at the fine level, which take the row-tiled kernels, 175 at level
-    1, streamed; the coarsest a dense solve), bs 8, the b30c4rm solver
-    settings.  In f32 storage (K2 on panels) and 'bf16_factored' (K3 on a
-    cluster): `time_layer_step` (3 timed runs; rel_rnorm at most
-    LONG_REL_BAR; the row-tiled kernels only at level 0, the streamed only
-    at level 1), the peak memory, and the fine level's kernel at the main
-    path's shapes (`fine_level_kernel`).  Then one
-    all-'bf16' forward (K2 bf16 on panels at level 0).  Returns (kernel
-    rows by key, launch counts by storage mode, the steps' numbers)."""
+    350 at the fine level and 175 at level 1; the coarsest a dense solve),
+    bs 8, the b30c4rm solver settings.  In f32 storage (K2 on panels at
+    both levels) and 'bf16_factored' (K3 on a cluster at both levels):
+    `time_layer_step` (3 timed runs; rel_rnorm at most LONG_REL_BAR; at
+    each level the kernels LONG_BLOCK_KERNEL gives it; the block applies'
+    device ms by level, level 1's beside LEVEL1_BEFORE_MS), the peak memory,
+    and the kernel of each level at the main path's shapes (`level_kernel`).
+    Then one all-'bf16' forward (K2 bf16 on panels at the fine level,
+    streamed at level 1) and its kernels at both levels.  Returns (kernel
+    rows by key: the fine level's by kernel, level 1's as
+    "level1_<storage mode>"; launch counts by storage mode; level 1's launch
+    counts by storage mode; the steps' numbers)."""
     t_phase = time.perf_counter()
-    rows, counts, steps_out = {}, {}, {}
+    rows, counts, level1, steps_out = {}, {}, {}, {}
     for precond, key in (("f32", "k2_panels"), ("bf16_factored", "k3_cluster")):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -2033,24 +2111,32 @@ def phase_long_window(seed, dev, bs=8, dims=(50, 32, 32)):
             f"levels {mg.dim_list}, line blocks of bw "
             f"{[d[0] * m for d in mg.dim_list[:-1]]}; {layer.system.describe()}")
         label = f"long-window {precond} layer step (bs {bs}, {dims})"
-        blocks = LONG_BLOCK_KERNEL[precond]
+        levels = LONG_BLOCK_KERNEL[precond]
+        blocks = tuple(sorted({n for v in levels.values() for n in v}))
         res = time_layer_step(layer, c0, r0, i0, steps, label, blocks, rel_bar=LONG_REL_BAR,
-                              level_blocks={0: blocks[:1], 1: blocks[1:]}, runs=3)
+                              level_blocks=levels, runs=3)
         res["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
-        log(f"{label}: peak memory {res['peak_memory_gib']:.3f} GiB")
-        rows[key] = fine_level_kernel(layer, c0, r0, i0, steps, precond, seed, dev)
+        log(f"{label}: peak memory {res['peak_memory_gib']:.3f} GiB; level 1's block applies "
+            f"{res['block_ms_by_level'].get(1, 0.0):.1f} ms of device time a step (the streamed "
+            f"kernels of the parent design: {LEVEL1_BEFORE_MS[precond]} ms)")
+        rows[key] = level_kernel(layer, c0, r0, i0, steps, precond, seed, dev)
+        rows[f"level1_{precond}"] = level_kernel(layer, c0, r0, i0, steps, precond, seed, dev, 1)
         counts[precond], steps_out[precond] = res["counts"], res
+        level1[precond] = res["by_level"].get(1, {})
         del layer, mg
     torch.cuda.empty_cache()
-    blocks = LONG_BLOCK_KERNEL["bf16"]
-    counts["bf16"], layer = phase_bf16_forward(seed, dev, bs, dims, downsample_first=True,
-                                               level_blocks={0: blocks[:1], 1: blocks[1:]})
+    levels = LONG_BLOCK_KERNEL["bf16"]
+    counts["bf16"], layer, by_level = phase_bf16_forward(seed, dev, bs, dims,
+                                                         downsample_first=True,
+                                                         level_blocks=levels)
+    level1["bf16"] = by_level.get(1, {})
     (c0, r0, i0), steps = bench_inputs(layer, bs, dims, seed, dev)
-    rows["k2_panels_bf16"] = fine_level_kernel(layer, c0, r0, i0, steps, "bf16", seed, dev)
+    rows["k2_panels_bf16"] = level_kernel(layer, c0, r0, i0, steps, "bf16", seed, dev)
+    rows["level1_bf16"] = level_kernel(layer, c0, r0, i0, steps, "bf16", seed, dev, 1)
     del layer
     torch.cuda.empty_cache()
     log(f"phase 5b took {time.perf_counter() - t_phase:.1f} s")
-    return rows, counts, steps_out
+    return rows, counts, level1, steps_out
 
 
 def phase_trainer(dev, cfg=None):
@@ -2722,9 +2808,9 @@ def main() -> int:
     _, stencil_rel = phase_layer(args.seed, dev)
     counts_w, _ = phase_layer(args.seed, dev, precond="bf16_factored")
     torch.cuda.empty_cache()
-    counts_b, _ = phase_bf16_forward(args.seed, dev)
+    counts_b, _, _ = phase_bf16_forward(args.seed, dev)
     torch.cuda.empty_cache()
-    long_rows, counts_long, long_steps = phase_long_window(args.seed, dev)
+    long_rows, counts_long, counts_level1, long_steps = phase_long_window(args.seed, dev)
     report.update(long_rows)
     counts = phase_trainer(dev)
     torch.cuda.empty_cache()
@@ -2792,6 +2878,16 @@ def main() -> int:
         ("k3_factored_line_block_apply_cluster", line, f"{tpu_fs}:104",
          long_w.format("bf16_factored"), counts_long["bf16_factored"], "k3_cluster"),
     ]
+    # the long window's level-1 kernels (bw 175), rows of their own: each
+    # with its launches at level 1 of its path
+    level1_path = "long-window {} storage, level 1 (bs 8, 256 lines of 175^2)"
+    for precond, what in (("f32", "layer step"), ("bf16_factored", "layer step"),
+                          ("bf16", "forward")):
+        row = report[f"level1_{precond}"]
+        rep = f"{tpu_fs}:{104 if precond == 'bf16_factored' else 87 if precond == 'bf16' else 128}"
+        kernels.append((row["kernel"], line, rep,
+                        level1_path.format(precond).replace("storage", f"storage {what}"),
+                        counts_level1[precond], f"level1_{precond}"))
     # each line-block kernel also carries the phase-2d rows of its route
     entry_of = {("k2", "streamed"): "k2", ("k2_bf16", "streamed"): "k2_bf16",
                 ("k3", "streamed"): "k3", ("k2", "panels"): "k2_panels",
@@ -2813,11 +2909,10 @@ def main() -> int:
         for p in ("parallel_sp2", "parallel_nccl_sp1"):
             if f"{kd['name']}_windowed" in new_counts[p]:
                 kd["launches_new_paths"][f"{p}_windowed"] = new_counts[p][f"{kd['name']}_windowed"]
-    for kd in kernels:
-        if kd["name"] == "k2_line_block_apply_panels":
-            kd["long_window_steps"] = {
-                mode: {k: v for k, v in st.items() if k not in ("counts", "top_kernels")}
-                for mode, st in long_steps.items()}
+    next(kd for kd in kernels if kd["name"] == "k2_line_block_apply_panels")[
+        "long_window_steps"] = {
+            mode: {k: v for k, v in st.items() if k not in ("counts", "top_kernels")}
+            for mode, st in long_steps.items()}
     for kd in kernels:
         if kd["launches"] == 0:
             raise AssertionError(f"{kd['name']} was not launched in the {kd['launches_in']}")

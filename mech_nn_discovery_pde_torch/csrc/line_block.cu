@@ -30,27 +30,32 @@
 // cores; it raises the bytes in flight and cuts the per-item overhead.
 //
 // Design.  Persistent CTAs: the grid is a few CTAs per SM (the launch
-// geometry comes from ops/fused_smoother.line_block_geometry: 8 CTAs per SM
-// with 2 stages each at the GL shapes), and CTA c walks the items c,
-// c + grid, c + 2 grid, ...  Each CTA is one producer warp and
-// ceil(bw / 32) consumer warps around a ring of `stages` stages in shared
-// memory; a stage holds one block and its line of r.
+// geometry comes from ops/fused_smoother.line_block_geometry: up to 8 CTAs
+// per SM with 2 stages each, 8 at the GL shapes, or a CTA alone on its SM
+// with up to 3), and CTA c walks the items c, c + grid, c + 2 grid, ...
+// Each CTA is one producer warp and ceil(bw / 32) consumer warps around a
+// ring of `stages` stages in shared memory; a stage holds one block and its
+// line of r.
 //   - Producer (warp 0): waits for the stage to be released (its `empty`
 //     mbarrier), gathers r's bw values through the line index map with
 //     4-byte cp.async (tracked by the stage's `full` mbarrier through
-//     cp.async.mbarrier.arrive.noinc), and has one lane start a 1-D bulk
-//     copy (cp.async.bulk ... complete_tx) of the contiguous block that
-//     completes on `full`.  It runs `stages` items ahead of the consumers,
-//     so the next blocks load while one is computed on.  A block whose
-//     bytes or address are not 16-byte aligned (bf16 at bw = 42: 3,528 B)
-//     takes the in-kernel load path instead: the producer lanes copy it
-//     with plain loads and each arrives on `full` after its stores.
+//     cp.async.mbarrier.arrive.noinc), and moves the contiguous block by a
+//     1-D bulk copy (cp.async.bulk ... complete_tx) that completes on
+//     `full`: where every block is 16-byte aligned (`whole`: its bytes a
+//     multiple of 16 at an aligned pointer, as at the GL shapes), one lane
+//     copies the whole block; else `panel_copy` puts the block at its
+//     address mod 16 in the stage (16 more bytes a stage), one lane copies
+//     its aligned interior and the lanes its head and tail, so a block of
+//     any alignment (f32 at odd bw, bf16 at bw not a multiple of 4; 122,500
+//     B at bw 175) is one bulk copy.  It runs `stages` items ahead of the
+//     consumers, so the next blocks load while one is computed on.
 //   - Consumers: one thread per block row (K2) or column/row (K3), sums in
 //     f32 from shared memory, with no shuffles, 8 loads of each operand in
-//     flight per step (`dot`).  Each thread prefetches its d entry and c1,
-//     c2 before waiting on `full`, arrives on `empty` once it has read the
-//     stage, and then writes its d entry; the thread that reads d(o) is the
-//     one that writes it, so in-place d is race-free.
+//     flight per step (`dot`), from the block's shifted base.  Each thread
+//     prefetches its d entry and c1, c2 before waiting on `full`, arrives
+//     on `empty` once it has read the stage, and then writes its d entry;
+//     the thread that reads d(o) is the one that writes it, so in-place d is
+//     race-free.
 //   - K3 reads only W's upper triangle: pass 1 u_j = sum_{i<=j} W[i,j] r_i
 //     (thread j, u kept in f32 as the TPU kernel's `us`, double-buffered
 //     across items), one named barrier over the consumer warps (bar.sync 1,
@@ -59,26 +64,42 @@
 //     the copy still moves the zeros, so the bound is unchanged.
 // A CTA computes one item at a time, and what limits it is its consumers'
 // chain of shared-memory loads more than the bytes in flight: hence many
-// small CTAs (8 per SM), two stages each, and the unrolled loads.
+// small CTAs (8 per SM), two stages each, and the unrolled loads.  Wider
+// blocks leave fewer CTAs an SM; the streamed kernels take a block only
+// while their ring keeps enough of them in flight per SM, up to a measured
+// crossover (ops/fused_smoother._STREAMED_MAX_BW, tools/line_block_sweep.py
+// --mid on an H100): K2 f32 to bw 137 (2 CTAs of 2 stages, or one of 3),
+// K2 bf16 to bw 240 (one CTA of 3 stages, then 2), K3 to bw 168 (2 CTAs of
+// 2 stages); a wider block takes a row-tiled kernel below.
 //
 // Shared-memory banks.  A block row is bw words apart in f32; at bw = 56 that
 // is 24 (mod 32), so a warp whose thread i reads column c of row i touches
-// only 4 banks (8-way conflict).  K2's thread i instead starts at column i
-// and wraps (c = (i + q) mod bw at step q): the word i*57 + q falls in bank
-// 25 i + q (mod 32), distinct over a warp, and the threads whose column
-// wrapped shift by 24 banks, so a step is at most 2-way (mean 1.55 for rows
-// 0-31, 1.0 for rows 32-55; 1.74 / 1.0 at bw = 42).  In bf16 two entries
-// share a word and the same skew gives 2-way.  K3's pass 1 reads a row of W
-// across consecutive threads (conflict-free, r broadcast); pass 2's thread i
-// reads W[i, i+q], which is skewed by construction (at most 2-way).  r and u
-// are read at consecutive words.
+// only 4 banks (8-way conflict).  K2's thread i instead starts at column
+// a i mod bw and wraps (c = (a i + q) mod bw at step q), the skew a chosen
+// per width (`flags`; ops/fused_smoother.line_block_walk, which counts each
+// warp-wide load's banks over every step and block placement and takes
+// the first walk at most 2-way).  a = 1 at bw = 56: the word i*57 + q falls
+// in bank 25 i + q (mod 32), distinct over a warp, and the threads whose
+// column wrapped shift by 24 banks (at most 2-way; mean 1.55 for rows 0-31,
+// 1.0 for rows 32-55; 1.74 / 1.0 at bw = 42); a = 0 where a = 1 is more
+// than 2-way and a = 0 is not (in f32 the widths bw = 3 (mod 4), whose
+// rows are bw + 1 words apart from diagonal to diagonal, 16-way at bw =
+// 175, while an odd bw puts B[i, q] in bank i bw + q, distinct; in bf16
+// also some even ones); a = 3 where neither is (bf16 at bw 72, 80, 136,
+// 144, 200, 208).  In bf16 two entries share a word, 2-way at most.  K3's
+// pass 1 reads a row of W across consecutive threads (conflict-free, r
+// broadcast); pass 2's thread i reads W[i, i+q], skewed by construction
+// (rows bw + 1 entries apart, at most 2-way), except at bw = 7 (mod 8),
+// where bw + 1 entries are a multiple of 4 bf16 words (88 at bw = 175:
+// 8-way) and pass 2 walks down from the last column instead (W[i, bw-1-q]:
+// the lanes read one column, bw entries apart, at most 2-way).  r and u
+// are read at consecutive words or broadcast.
 //
-// Row-tiled path.  A block larger than one CTA's shared memory (bw > 240 in
-// f32, > 339 in bf16, > 337 for K3) takes one of three kernels; which one
-// follows from the shape alone (`route_of`, mirrored by
-// ops/fused_smoother.line_block_route), and the launch geometry (`rows`,
-// CTAs, stages) comes from ops/fused_smoother.line_block_geometry.  Every
-// block that fits one CTA takes the streamed path above, unchanged.
+// Row-tiled path.  A block wider than the streamed kernels' crossover takes
+// one of three kernels; which one follows from the launch's rows
+// (`route_of`, mirrored by ops/fused_smoother.line_block_route), and the
+// launch geometry (`rows`, CTAs, stages) comes from
+// ops/fused_smoother.line_block_geometry.
 //   - K2: k2_line_block_apply_panels.  The unit of work is an (item, row
 //     panel) pair, not an item: the persistent CTAs walk the bs*S*panels
 //     units (unit c, c + grid, ...), so 128 blocks of bw 280 are 1,152
@@ -104,7 +125,10 @@
 //     than bytes (tools/line_block_sweep.py at bw 350: about 10 us an item
 //     at 48 rows as at 88); hence a ring of one stage a CTA and up to 3
 //     CTAs an SM, whose chains overlap each other's loads, rather than
-//     one CTA an SM with several stages.  Sweep 1: each CTA forms its partial
+//     one CTA an SM with several stages; at the mid widths (bw 169 to 190,
+//     the long window's level 1) clusters of 2 CTAs of 2 stages, 3 an SM,
+//     whose next rows load while they compute (tools/line_block_sweep.py
+//     --mid).  Sweep 1: each CTA forms its partial
 //     u_j = sum_{its rows i <= j} W[i, j] r_i for the columns j >= its
 //     first row (one thread per column, as the streamed K3's pass 1).  One
 //     consumer thread then signals the other CTAs (a remote mbarrier
@@ -137,19 +161,23 @@
 //     consumers released a panel of item k - 1, which the launch check
 //     guarantees (panel loads per item >= stages).
 // The panel and cluster kernels move every panel with one 1-D bulk copy
-// (`panel_copy`): the panel lands at stage + (its address mod 16), so the
-// copy takes its 16-byte-aligned interior and the lanes copy the head and
-// tail (under 16 bytes each) with 2-byte loads.  bf16 blocks of bw 350
-// (245,000 B, every other one 8-byte aligned) thus take the bulk copy too;
-// the consumers' 4- and 2-byte loads need no alignment beyond the entry's.
+// (`panel_copy`, as the streamed kernels' unaligned blocks): the panel
+// lands at stage + (its address mod 16), so the copy takes its
+// 16-byte-aligned interior and the lanes copy the head and tail (under 16
+// bytes each) with 2-byte loads.  bf16 blocks of bw 350 (245,000 B, every
+// other one 8-byte aligned) thus take the bulk copy too; the consumers' 4-
+// and 2-byte loads need no alignment beyond the entry's.
 //
 // Registers and shared memory (nvcc -Xptxas -v, sm_90a, CUDA 12.8 on the
 // H100 machine; chip_smoke.py checks the stack and spills): 48 registers a
-// thread for the three streamed kernels, 56 for the panel and cluster ones
-// and 55 for the two-sweep one, no spills, no static shared memory; the
-// dynamic shared memory is the geometry's (GL shapes: 25,568 B for K2 f32,
-// 13,024 B for K2 bf16, 13,472 B for K3 per CTA; bw 350: 70,080 B for K2
-// f32 on panels, 36,480 B in bf16, 66,912 B for K3 on a cluster).
+// thread for the three streamed kernels (with the shifted copy and the
+// walks), 56 for the panel and cluster ones and 55 for the two-sweep one,
+// no stack frame, no spills, no static shared memory; the dynamic shared
+// memory is the geometry's (GL shapes: 25,568 B for K2 f32, 13,024 B for
+// K2 bf16, 13,472 B for K3 per CTA, as before the shifted copy; bw 175:
+// 35,072 B for K2 f32 on panels, 186,000 B for K2 bf16 streamed in 3
+// stages, 65,200 B for K3 on a cluster of 2 in 2 stages; bw 350: 70,080 B
+// for K2 f32 on panels, 36,480 B in bf16, 66,912 B for K3 on a cluster).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -160,26 +188,37 @@ namespace {
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-// ---- shared-memory layout (ops/fused_smoother.line_block_geometry mirrors it)
+// ---- shared-memory layout (ops/fused_smoother.line_block_smem_bytes mirrors it)
 //   [full mbarriers: stages x 8 B][empty mbarriers: stages x 8 B]
 //   [u: 2 bw f32, K3 only, padded to 16 B]
-//   stages x [block: bw*bw entries, padded to 16 B][r: bw f32, padded to 16 B]
+//   stages x [block: bw*bw entries, padded to 16 B, + 16 B for its shift
+//             unless every block is 16-byte aligned (`whole`)]
+//            [r: bw f32, padded to 16 B]
 __host__ __device__ inline size_t pad16(size_t n) { return (n + 15) / 16 * 16; }
 
 struct Layout {
   size_t block_bytes, block_pad, stage_bytes, u_off, stage_off, total;
 };
 
-__host__ __device__ inline Layout make_layout(int bw, int stages, int esize, bool factored) {
+__host__ __device__ inline Layout make_layout(int bw, int stages, int esize, bool factored,
+                                              bool whole) {
   Layout L;
   L.block_bytes = (size_t)bw * bw * esize;
-  L.block_pad = pad16(L.block_bytes);
+  L.block_pad = pad16(L.block_bytes) + (whole ? 0 : 16);
   L.stage_bytes = L.block_pad + pad16(sizeof(float) * (size_t)bw);
   L.u_off = 16 * (size_t)stages;
   L.stage_off = L.u_off + (factored ? pad16(2 * sizeof(float) * (size_t)bw) : 0);
   L.total = L.stage_off + (size_t)stages * L.stage_bytes;
   return L;
 }
+
+// the streamed launch's `flags`: bit 0 `whole` (every block 16-byte aligned,
+// moved by one bulk copy of the whole block; else `panel_copy`), bits 1-7
+// the consumers' column walk (ops/fused_smoother.line_block_walk: K2's skew
+// a, thread i starting at column a i mod bw; K3's pass 2, 0 from the
+// diagonal up, 1 from the last column down)
+constexpr int kWhole = 1;
+__host__ __device__ inline int flags_walk(int flags) { return (flags >> 1) & 127; }
 
 // ---- the two-sweep K3's layout (line_block_smem_bytes mirrors it)
 //   [full mbarriers: stages x 8 B][empty mbarriers: stages x 8 B]
@@ -417,20 +456,54 @@ __device__ __forceinline__ Ring<LayoutT> ring_setup(unsigned char* smem, const L
   return g;
 }
 
-// warp 0: fill the ring with this CTA's items, `stages` ahead of the consumers
+// (the address of `p`) mod 16: where a panel copied from `p` starts in its
+// stage (`panel_copy`)
+__device__ __forceinline__ uint32_t panel_shift(const void* p) {
+  return (uint32_t)(reinterpret_cast<uintptr_t>(p) & 15);
+}
+
+// Producer warp: copy a panel of `bytes` (a multiple of 2) from global `src`
+// into the stage at `dst`, starting at dst + panel_shift(src), so that its
+// 16-byte-aligned interior lands 16-byte aligned: lane 0 expects and starts
+// one 1-D bulk copy of the interior, completing on `full`; the lanes copy the
+// head and the tail (under 16 bytes each) with 2-byte loads; every lane
+// arrives on `full` after its stores (lane 0 with the bulk copy's
+// expect_tx), 32 arrivals.
+__device__ __forceinline__ void panel_copy(unsigned char* dst, const void* src, uint32_t bytes,
+                                           int lane, uint64_t* full) {
+  const uint32_t shift = panel_shift(src);
+  const uint32_t head = min((16 - shift) & 15, bytes);
+  const uint32_t body = (bytes - head) & ~15u;
+  const uint16_t* s2 = reinterpret_cast<const uint16_t*>(src);
+  uint16_t* d2 = reinterpret_cast<uint16_t*>(dst + shift);
+  for (uint32_t e = lane; e < head / 2; e += 32) d2[e] = s2[e];
+  for (uint32_t e = (head + body) / 2 + lane; e < bytes / 2; e += 32) d2[e] = s2[e];
+  // a later bulk copy into this stage (async proxy) follows these stores
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  if (lane == 0 && body) {
+    mbar_arrive_expect_tx(full, body);
+    bulk_g2s(dst + shift + head, reinterpret_cast<const char*>(src) + head, body, full);
+  } else {
+    mbar_arrive(full);
+  }
+}
+
+// warp 0: fill the ring with this CTA's items, `stages` ahead of the consumers:
+// each stage gets r's line (4-byte cp.async, 32 arrivals) and the block, by
+// one bulk copy where every block is 16-byte aligned (`whole`: lane 0's
+// expect_tx arrival), else by `panel_copy` (32 arrivals)
 template <typename TB>
 __device__ __forceinline__ void produce(const Ring<Layout>& g, const TB* __restrict__ blocks,
                                         const float* __restrict__ r, int m, int nt, int S,
-                                        int items, bool bulk) {
+                                        int items, bool whole) {
   const int lane = threadIdx.x;
   const int bw = nt * m;
-  const int nw = bw * bw;
+  const size_t nw = (size_t)bw * bw;
   int stage = 0;
   uint32_t round = 0;
   for (int it = blockIdx.x; it < items; it += gridDim.x) {
     if (round > 0) mbar_wait(&g.empty[stage], (round - 1) & 1);
     unsigned char* st = g.stage0 + (size_t)stage * g.L.stage_bytes;
-    TB* blk = reinterpret_cast<TB*>(st);
     float* rl = reinterpret_cast<float*>(st + g.L.block_pad);
     const int b = it / S;
     const int s = it - b * S;
@@ -438,15 +511,13 @@ __device__ __forceinline__ void produce(const Ring<Layout>& g, const TB* __restr
     for (int j = lane; j < bw; j += 32) cp_async4(rl + j, rb + (size_t)(j / m) * S * m + j % m);
     cp_async_arrive_noinc(&g.full[stage]);
     const TB* src = blocks + (size_t)it * nw;
-    if (bulk) {
+    if (whole) {
       if (lane == 0) {
         mbar_arrive_expect_tx(&g.full[stage], (uint32_t)g.L.block_bytes);
-        bulk_g2s(blk, src, (uint32_t)g.L.block_bytes, &g.full[stage]);
+        bulk_g2s(st, src, (uint32_t)g.L.block_bytes, &g.full[stage]);
       }
     } else {
-#pragma unroll 4
-      for (int e = lane; e < nw; e += 32) blk[e] = src[e];
-      mbar_arrive(&g.full[stage]);
+      panel_copy(st, src, (uint32_t)g.L.block_bytes, lane, &g.full[stage]);
     }
     if (++stage == g.stages) {
       stage = 0;
@@ -514,23 +585,26 @@ __device__ __forceinline__ float dot(const TB* a, int stride, const float* v, in
 template <typename TB>
 __global__ void k2_line_block_apply(const TB* __restrict__ binv, const float* __restrict__ r,
                                     float* d, const float* c1, const float* c2, int m, int nt,
-                                    int S, int items, int stages, int bulk) {
+                                    int S, int items, int stages, int flags) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int bw = nt * m;
   const int consumers = blockDim.x - 32;
-  const Ring<Layout> g = ring_setup(smem, make_layout(bw, stages, sizeof(TB), false), stages,
-                                    consumers, bulk);
+  const bool whole = flags & kWhole;
+  const Ring<Layout> g = ring_setup(smem, make_layout(bw, stages, sizeof(TB), false, whole),
+                                    stages, consumers, whole);
   if (threadIdx.x < 32) {
-    produce<TB>(g, binv, r, m, nt, S, items, bulk);
+    produce<TB>(g, binv, r, m, nt, S, items, whole);
     return;
   }
   const int i = threadIdx.x - 32;  // block row
   const int row_off = (i / m) * S * m + i % m;
-  // thread i starts at column i and wraps (see the bank note)
-  const auto skew = [i, bw](int q) {
-    const int c = i + q;
+  // thread i starts at column a i mod bw and wraps (see the bank note)
+  const int start = (int)(((long long)flags_walk(flags) * i) % bw);
+  const auto skew = [start, bw](int q) {
+    const int c = start + q;
     return c >= bw ? c - bw : c;
   };
+  const size_t nw = (size_t)bw * bw;
   int stage = 0;
   uint32_t round = 0;
   for (int it = blockIdx.x; it < items; it += gridDim.x) {
@@ -540,10 +614,12 @@ __global__ void k2_line_block_apply(const TB* __restrict__ binv, const float* __
     if (i < bw) e = epilogue_fetch(d, c1, c2, b, s, row_off, m, nt, S);
     mbar_wait(&g.full[stage], round & 1);
     const unsigned char* st = g.stage0 + (size_t)stage * g.L.stage_bytes;
+    // the block starts at its address mod 16 (0 where `whole`)
+    const TB* blk = reinterpret_cast<const TB*>(st + panel_shift(binv + (size_t)it * nw));
     float t = 0.f;
     if (i < bw)
-      t = dot(reinterpret_cast<const TB*>(st) + (size_t)i * bw, 1,
-              reinterpret_cast<const float*>(st + g.L.block_pad), bw, skew);
+      t = dot(blk + (size_t)i * bw, 1, reinterpret_cast<const float*>(st + g.L.block_pad), bw,
+              skew);
     mbar_arrive(&g.empty[stage]);
     if (i < bw) epilogue_store(d, e, c1 != nullptr, t);
     if (++stage == stages) {
@@ -556,20 +632,25 @@ __global__ void k2_line_block_apply(const TB* __restrict__ binv, const float* __
 __global__ void k3_factored_line_block_apply(const __nv_bfloat16* __restrict__ w,
                                              const float* __restrict__ r, float* d,
                                              const float* c1, const float* c2, int m, int nt,
-                                             int S, int items, int stages, int bulk) {
+                                             int S, int items, int stages, int flags) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int bw = nt * m;
   const int consumers = blockDim.x - 32;
-  const Layout L = make_layout(bw, stages, sizeof(__nv_bfloat16), true);
-  const Ring<Layout> g = ring_setup(smem, L, stages, consumers, bulk);
+  const bool whole = flags & kWhole;
+  const Layout L = make_layout(bw, stages, sizeof(__nv_bfloat16), true, whole);
+  const Ring<Layout> g = ring_setup(smem, L, stages, consumers, whole);
   if (threadIdx.x < 32) {
-    produce<__nv_bfloat16>(g, w, r, m, nt, S, items, bulk);
+    produce<__nv_bfloat16>(g, w, r, m, nt, S, items, whole);
     return;
   }
   float* u2 = reinterpret_cast<float*>(smem + L.u_off);
   const int i = threadIdx.x - 32;  // column j = i in pass 1, row i in pass 2
   const int row_off = (i / m) * S * m + i % m;
   const auto ident = [](int q) { return q; };
+  // pass 2 walks row i from the last column down (see the bank note)
+  const bool down = flags_walk(flags) != 0;
+  const auto from_last = [bw](int q) { return bw - 1 - q; };
+  const size_t nw = (size_t)bw * bw;
   int stage = 0;
   uint32_t round = 0;
   int k = 0;
@@ -580,7 +661,8 @@ __global__ void k3_factored_line_block_apply(const __nv_bfloat16* __restrict__ w
     if (i < bw) e = epilogue_fetch(d, c1, c2, b, s, row_off, m, nt, S);
     mbar_wait(&g.full[stage], round & 1);
     const unsigned char* st = g.stage0 + (size_t)stage * g.L.stage_bytes;
-    const __nv_bfloat16* W = reinterpret_cast<const __nv_bfloat16*>(st);
+    const __nv_bfloat16* W =
+        reinterpret_cast<const __nv_bfloat16*>(st + panel_shift(w + (size_t)it * nw));
     const float* rl = reinterpret_cast<const float*>(st + g.L.block_pad);
     // u alternates between two buffers: the named barrier of item k + 1
     // orders every pass-2 read of item k before item k + 2's pass-1 writes
@@ -588,9 +670,12 @@ __global__ void k3_factored_line_block_apply(const __nv_bfloat16* __restrict__ w
     // pass 1: u_i = sum_{q <= i} W[q, i] r_q (column i, down to the diagonal)
     if (i < bw) u[i] = dot(W + i, bw, rl, i + 1, ident);
     consumers_sync(consumers);
-    // pass 2: t_i = sum_{j >= i} W[i, j] u_j (row i, from the diagonal)
+    // pass 2: t_i = sum_{j >= i} W[i, j] u_j (row i, from the diagonal up or
+    // from the last column down)
     float t = 0.f;
-    if (i < bw) t = dot(W + (size_t)i * bw + i, 1, u + i, bw - i, ident);
+    if (i < bw)
+      t = down ? dot(W + (size_t)i * bw, 1, u, bw - i, from_last)
+               : dot(W + (size_t)i * bw + i, 1, u + i, bw - i, ident);
     mbar_arrive(&g.empty[stage]);
     if (i < bw) epilogue_store(d, e, c1 != nullptr, t);
     if (++stage == stages) {
@@ -683,36 +768,6 @@ __device__ __forceinline__ void produce_tiled(const Ring<TiledLayout>& g, const 
 }
 
 // ---- the panel and cluster kernels
-
-// (the address of `p`) mod 16: where a panel copied from `p` starts in its
-// stage (`panel_copy`)
-__device__ __forceinline__ uint32_t panel_shift(const void* p) {
-  return (uint32_t)(reinterpret_cast<uintptr_t>(p) & 15);
-}
-
-// Producer warp: copy a panel of `bytes` (a multiple of 2) from global `src`
-// into the stage at `dst`, starting at dst + panel_shift(src), so that its
-// 16-byte-aligned interior lands 16-byte aligned: lane 0 expects and starts
-// one 1-D bulk copy of the interior, completing on `full`; the lanes copy the
-// head and the tail (under 16 bytes each) with 2-byte loads; every lane
-// arrives on `full` after its stores (lane 0 with the bulk copy's
-// expect_tx), 32 arrivals.
-__device__ __forceinline__ void panel_copy(unsigned char* dst, const void* src, uint32_t bytes,
-                                           int lane, uint64_t* full) {
-  const uint32_t shift = panel_shift(src);
-  const uint32_t head = min((16 - shift) & 15, bytes);
-  const uint32_t body = (bytes - head) & ~15u;
-  const uint16_t* s2 = reinterpret_cast<const uint16_t*>(src);
-  uint16_t* d2 = reinterpret_cast<uint16_t*>(dst + shift);
-  for (uint32_t e = lane; e < head / 2; e += 32) d2[e] = s2[e];
-  for (uint32_t e = (head + body) / 2 + lane; e < bytes / 2; e += 32) d2[e] = s2[e];
-  if (lane == 0 && body) {
-    mbar_arrive_expect_tx(full, body);
-    bulk_g2s(dst + shift + head, reinterpret_cast<const char*>(src) + head, body, full);
-  } else {
-    mbar_arrive(full);
-  }
-}
 
 // The sums over a warp's 32 lanes of its 4 row sums a0..a3: returns, at
 // lane l, the total of row (l >> 3) & 3.  A transposed reduction: the lane
@@ -1036,13 +1091,11 @@ __global__ void k3_factored_line_block_apply_tiled(const __nv_bfloat16* __restri
   }
 }
 
-// Check the launch geometry against the shapes and the layout of the path
-// it takes (rows == nt * m: streamed; fewer: row-tiled); returns a CUDA
 // Check the launch geometry against the shapes and the layout of the kernel
 // it takes (`route_of`); returns a CUDA error code (0 if the launch may go
 // ahead)
 int check_launch(const void* blocks, int m, int nt, int S, int bs, int ctas, int rows,
-                 int stages, int smem_bytes, int bulk, int esize, bool factored) {
+                 int stages, int smem_bytes, int flags, int esize, bool factored) {
   if (m < 1 || nt < 1 || S < 1 || bs < 1 || ctas < 1 || stages < 1 || rows < 1)
     return (int)cudaErrorInvalidValue;
   if ((long long)bs * S > 0x7fffffff || (long long)nt * S * m > 0x7fffffff)
@@ -1053,10 +1106,15 @@ int check_launch(const void* blocks, int m, int nt, int S, int bs, int ctas, int
   const int panels = (bw + rows - 1) / rows;
   switch (route_of(bw, rows, factored)) {
     case kStreamed: {
-      const Layout L = make_layout(bw, stages, esize, factored);
+      // `whole` only where every block is 16-byte aligned; the walk in range
+      const bool whole = flags & kWhole;
+      const Layout L = make_layout(bw, stages, esize, factored, whole);
       if (32 + (rows + 31) / 32 * 32 > 1024 || (size_t)smem_bytes != L.total)
         return (int)cudaErrorInvalidValue;
-      if (bulk && (L.block_bytes % 16 != 0 || !aligned)) return (int)cudaErrorInvalidValue;
+      if (whole && (L.block_bytes % 16 != 0 || !aligned)) return (int)cudaErrorInvalidValue;
+      if ((reinterpret_cast<uintptr_t>(blocks) & (esize - 1)) != 0 ||
+          flags_walk(flags) > (factored ? 1 : 64))
+        return (int)cudaErrorInvalidValue;
       return 0;
     }
     case kPanels:
@@ -1079,8 +1137,8 @@ int check_launch(const void* blocks, int m, int nt, int S, int bs, int ctas, int
   if (32 + (rows + 31) / 32 * 32 > 1024 || 2 * panels < stages) return (int)cudaErrorInvalidValue;
   const TiledLayout L = make_tiled_layout(bw, rows, stages, esize, factored);
   if ((size_t)smem_bytes != L.total) return (int)cudaErrorInvalidValue;
-  if (bulk && (((size_t)bw * bw * esize) % 16 != 0 || ((size_t)rows * bw * esize) % 16 != 0 ||
-               !aligned))
+  if ((flags & kWhole) &&
+      (((size_t)bw * bw * esize) % 16 != 0 || ((size_t)rows * bw * esize) % 16 != 0 || !aligned))
     return (int)cudaErrorInvalidValue;
   return 0;
 }
@@ -1168,9 +1226,9 @@ int launch_cluster(int clusters, int csize, int smem_bytes, void* stream, Args..
 template <typename TB, bool FACTORED>
 int line_block_launch(const TB* blocks, const float* r, float* d, const float* c1,
                       const float* c2, int m, int nt, int S, int bs, int ctas, int rows,
-                      int stages, int smem_bytes, int bulk, void* stream) {
+                      int stages, int smem_bytes, int flags, void* stream) {
   static int allowed = 0, allowed_tiled = 0;
-  int code = check_launch(blocks, m, nt, S, bs, ctas, rows, stages, smem_bytes, bulk,
+  int code = check_launch(blocks, m, nt, S, bs, ctas, rows, stages, smem_bytes, flags,
                           sizeof(TB), FACTORED);
   if (code) return code;
   const int bw = nt * m;
@@ -1184,16 +1242,16 @@ int line_block_launch(const TB* blocks, const float* r, float* d, const float* c
     if (route == kTwoSweep)
       return launch(k3_factored_line_block_apply_tiled, &allowed_tiled, ctas,
                     32 + (rows + 31) / 32 * 32, smem_bytes, stream, blocks, r, d, c1, c2, m, nt,
-                    S, items, rows, stages, bulk);
+                    S, items, rows, stages, flags & kWhole);
     return launch(k3_factored_line_block_apply, &allowed, ctas, 32 + (rows + 31) / 32 * 32,
-                  smem_bytes, stream, blocks, r, d, c1, c2, m, nt, S, items, stages, bulk);
+                  smem_bytes, stream, blocks, r, d, c1, c2, m, nt, S, items, stages, flags);
   } else {
     if (route == kPanels)
       return launch(k2_line_block_apply_panels<TB>, &allowed_tiled, ctas,
                     32 + 32 * ((rows + kRowsPerWarp - 1) / kRowsPerWarp), smem_bytes, stream,
                     blocks, r, d, c1, c2, m, nt, S, items * panels, rows, stages);
     return launch(k2_line_block_apply<TB>, &allowed, ctas, 32 + (rows + 31) / 32 * 32,
-                  smem_bytes, stream, blocks, r, d, c1, c2, m, nt, S, items, stages, bulk);
+                  smem_bytes, stream, blocks, r, d, c1, c2, m, nt, S, items, stages, flags);
   }
 }
 
@@ -1201,32 +1259,34 @@ int line_block_launch(const TB* blocks, const float* r, float* d, const float* c
 
 extern "C" {
 
-// ctas, rows, stages, smem_bytes and bulk: the launch geometry of
-// ops/fused_smoother.line_block_geometry; the kernel follows from the shape
-// (`route_of`): rows == nt * m the streamed one, else a row-tiled one
+// ctas, rows, stages, smem_bytes and flags: the launch geometry of
+// ops/fused_smoother.line_block_geometry (flags: bit 0 `whole`, every block
+// 16-byte aligned; the streamed kernels' column walk above it); the kernel
+// follows from the launch's rows (`route_of`): rows == nt * m the streamed
+// one, else a row-tiled one
 int k2_line_block_apply_f32(const float* binv, const float* r, float* d, const float* c1,
                             const float* c2, int m, int nt, int S, int bs, int ctas, int rows,
-                            int stages, int smem_bytes, int bulk, void* stream) {
+                            int stages, int smem_bytes, int flags, void* stream) {
   return line_block_launch<float, false>(binv, r, d, c1, c2, m, nt, S, bs, ctas, rows, stages,
-                                         smem_bytes, bulk, stream);
+                                         smem_bytes, flags, stream);
 }
 
 // bf16 B^-1, f32 vectors
 int k2_line_block_apply_bf16(const __nv_bfloat16* binv, const float* r, float* d,
                              const float* c1, const float* c2, int m, int nt, int S, int bs,
-                             int ctas, int rows, int stages, int smem_bytes, int bulk,
+                             int ctas, int rows, int stages, int smem_bytes, int flags,
                              void* stream) {
   return line_block_launch<__nv_bfloat16, false>(binv, r, d, c1, c2, m, nt, S, bs, ctas, rows,
-                                                  stages, smem_bytes, bulk, stream);
+                                                  stages, smem_bytes, flags, stream);
 }
 
 // bf16 upper-triangular W, f32 vectors
 int k3_factored_line_block_apply_bf16(const __nv_bfloat16* w, const float* r, float* d,
                                       const float* c1, const float* c2, int m, int nt, int S,
                                       int bs, int ctas, int rows, int stages, int smem_bytes,
-                                      int bulk, void* stream) {
+                                      int flags, void* stream) {
   return line_block_launch<__nv_bfloat16, true>(w, r, d, c1, c2, m, nt, S, bs, ctas, rows,
-                                                 stages, smem_bytes, bulk, stream);
+                                                 stages, smem_bytes, flags, stream);
 }
 
 // the clusters of `csize` CTAs with `smem_bytes` of shared memory each that

@@ -54,7 +54,8 @@ _SIGNATURES = {
         "k1_stencil_apply_bf16": [_P] * 2 + [_I] * 11 + [_P] * 5,
     },
     # operands, (m, nt, S, bs), the launch geometry (ctas, panel rows,
-    # stages, smem_bytes, bulk; ops/fused_smoother.line_block_geometry), stream
+    # stages, smem_bytes, flags; ops/fused_smoother.line_block_geometry and
+    # line_block_launch_args), stream
     "line_block": {
         "k2_line_block_apply_f32": [_P] * 5 + [_I] * 9 + [_P],
         "k2_line_block_apply_bf16": [_P] * 5 + [_I] * 9 + [_P],

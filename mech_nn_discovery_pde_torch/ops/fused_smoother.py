@@ -17,12 +17,15 @@ epilogues:
 K3 replaces K2 under mg_precond_dtype='bf16_factored', where the level
 stores the PSD square-root factor W = L^-T of B^-1 = W W^T in bfloat16 (the
 TPU kernel's `factored=True`, `_emit_factored_block_apply`).  Both launch
-persistent CTAs that stream the blocks through a shared-memory ring; their
-launch geometry (`line_block_geometry`) is computed here from the shapes
-and the card's SM count.  A block too large for one CTA's shared memory
-takes a row-tiled kernel: K2 the panel kernel (units of one item's panel
-of rows), K3 the cluster kernel (a thread-block cluster holds the block,
-so W is read once) or, past 8 CTAs' shared memory, the two-sweep one.
+persistent CTAs that stream the blocks through a shared-memory ring, each
+block by a bulk copy whatever its alignment; their launch geometry
+(`line_block_geometry`) and column walk (`line_block_walk`, at most 2-way
+bank-conflicted) are computed here from the shapes and the card's SM
+count.  A block wider than the streamed kernels' crossover (bw > 137 in
+f32, > 240 in bf16, > 168 for K3) takes a row-tiled kernel: K2 the panel
+kernel (units of one item's panel of rows), K3 the cluster kernel (a
+thread-block cluster holds the block, so W is read once) or, past 8 CTAs'
+shared memory, the two-sweep one.
 
 The recurrence is the JAX package's (`MultigridSolver._smooth` chebyshev
 branch and `_fused_chebyshev_kernel`): Chebyshev over [lmax/ratio, lmax],
@@ -56,6 +59,7 @@ import dataclasses
 import functools
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from mech_nn_discovery_pde_torch.ops import _cuda
@@ -160,9 +164,10 @@ def block_apply(
     (c1 None reads as 0, and d is then not read; c2 None as 1; both
     per-sample (bs,) tensors); else returns t.  CUDA tensors launch kernel
     K2 (its point-block kernel where `point_path(nt, bw)`); CPU tensors run
-    the plain version.  K2 takes any bw: a block larger than one CTA's shared
-    memory (bw > 240 in float32, > 339 in bfloat16) takes the panel kernel,
-    whose units are (item, panel of rows) pairs (`line_block_geometry`)."""
+    the plain version.  K2 takes any bw: a block wider than the streamed
+    kernel's crossover (bw > 137 in float32, > 240 in bfloat16) takes the
+    panel kernel, whose units are (item, panel of rows) pairs
+    (`line_block_geometry`)."""
     if binv.is_cuda:
         kernels = _K2_FN.get(binv.dtype)
         if kernels is None:
@@ -190,7 +195,7 @@ def factored_block_apply(
     Contract: W is upper-triangular, with an exactly zero strict lower
     triangle (the solver stores L^-T with `.triu()`).  K3 reads only the
     upper triangle; the plain version reads all of W.  K3 takes any bw: a
-    block with bw > 337 is held by a thread-block cluster of up to 8 CTAs,
+    block with bw > 168 is held by a thread-block cluster of up to 8 CTAs,
     which read W once (to bw 916), and a wider one streams in panels of
     rows, twice (`line_block_geometry`)."""
     if w.is_cuda:
@@ -236,25 +241,42 @@ _K3_FN = _Kernels("k3_factored_line_block_apply_bf16",
 _SMEM_PER_BLOCK = 232448
 _SMEM_PER_SM = 233472
 _SMEM_RESERVED = 1024
-# the ring: CTAs per SM and stages per CTA.  A CTA computes one item at a
-# time, so the CTAs per SM set how many items' shared-memory reads overlap;
-# 2 stages let each CTA's next block load while one is computed on
+# the streamed ring: CTAs per SM and stages per CTA.  A CTA computes one
+# item at a time, so the CTAs per SM set how many items' shared-memory reads
+# overlap; 2 stages let each CTA's next block load while one is computed on
 _CTAS_PER_SM = 8
 _STAGES = 2
+# the widest block each streamed kernel takes, by (entry bytes, factored); a
+# wider one takes a row-tiled kernel.  tools/line_block_sweep.py --mid on an
+# H100 (bs 8 x 256 lines, bw 40 to 238): K2 f32 streamed while the SM keeps
+# 2 blocks in flight (2 CTAs of 2 stages, one of 3: bw 137), the panel
+# kernel beyond; K2 bf16 streamed wherever one CTA holds 2 stages (bw 240:
+# it beat the panel kernel at every width swept); K3 streamed while 2 CTAs
+# hold 2 stages (bw 168), the cluster kernel beyond
+_STREAMED_MAX_BW = {(4, False): 137, (2, False): 240, (2, True): 168}
+# a streamed CTA alone on its SM takes up to this many stages
+_STREAMED_MAX_STAGES = 3
+# the bytes of blocks (or panels) in flight per SM that the ring keeps while
+# each CTA computes on one, where shared memory allows
+_BYTES_IN_FLIGHT = 32 * 1024
 # the row-tiled kernels' panels: a multiple of 8 rows (so a panel's bytes
 # are a multiple of 16)
 _PANEL_ROW_STEP = 8
 # the panel kernel (K2): a consumer warp per _ROWS_PER_WARP panel rows, at
 # most _PANEL_MAX_ROWS rows (6 consumer warps), _PANEL_CTAS_PER_SM CTAs an
-# SM of _PANEL_STAGES stages each (tools/line_block_sweep.py at bw 350, bs
-# 8 x 1024 lines, on an H100: the fastest geometry it tries in bf16, within
-# 4 % of the fastest in f32)
+# SM of _PANEL_STAGES stages each, more stages where that keeps less than
+# _BYTES_IN_FLIGHT in flight, up to _PANEL_MAX_STAGES
+# (tools/line_block_sweep.py at bw 350, bs 8 x 1024 lines, on an H100: the
+# fastest geometry it tries in bf16, within 4 % of the fastest in f32)
 _ROWS_PER_WARP = 4
 _PANEL_MAX_ROWS = 24
 _PANEL_CTAS_PER_SM = 3
 _PANEL_STAGES = 2
+_PANEL_MAX_STAGES = 4
 # the cluster kernel (K3): at most _MAX_CLUSTER CTAs a cluster (the portable
-# limit), at most _CLUSTER_CTAS_PER_SM CTAs an SM, one stage each
+# limit), at most _CLUSTER_CTAS_PER_SM CTAs an SM, one stage each, but 2
+# stages in clusters of 2 where _CLUSTER_CTAS_PER_SM CTAs an SM hold them
+# (mid widths, bw 169 to 190: tools/line_block_sweep.py --mid)
 _MAX_CLUSTER = 8
 _CLUSTER_CTAS_PER_SM = 3
 # the two-sweep K3 (blocks too wide for a cluster): the most CTAs per SM
@@ -270,11 +292,12 @@ def _pad16(n: int) -> int:
 class LineBlockGeometry:
     """Launch geometry of K2/K3 (csrc/line_block.cu): `ctas` persistent CTAs,
     each with a ring of `stages` stages in `smem_bytes` of dynamic shared
-    memory.  `route` names the kernel, which follows from the shape alone
+    memory.  `route` names the kernel, which follows from the launch's rows
     (`line_block_route`):
       "streamed"  (panel_rows == bw) a stage holds a whole block; one
                   producer warp and ceil(bw/32) consumer warps; CTA c takes
                   the items (sample, line) c, c + ctas, ... of the bs*S;
+                  `walk` is the consumers' column walk (`line_block_walk`);
       "panels"    K2 row-tiled: a stage holds a panel of `panel_rows` rows
                   and r's line; one producer warp and a consumer warp per 4
                   panel rows; CTA c takes the units (item, panel) c,
@@ -288,9 +311,12 @@ class LineBlockGeometry:
       "two_sweep" K3 at blocks too wide for a cluster: a stage holds a panel
                   of `panel_rows` rows, streamed twice per item; one
                   producer warp and ceil(panel_rows/32) consumer warps.
-    `bulk`: each block or panel is moved by one 1-D bulk copy (the panel and
-    cluster kernels: its 16-byte-aligned interior, at any alignment of the
-    entries); else the kernel's own load path copies it."""
+    `bulk`: each block or panel is moved by one 1-D bulk copy (the streamed,
+    panel and cluster kernels: of the whole block where it is 16-byte
+    aligned, else of its 16-byte-aligned interior, at any alignment of the
+    entries); else (the two-sweep kernel only) its own load path copies it.
+    `smem_bytes` is the layout for a 16-byte-aligned pointer
+    (`line_block_launch_args` adds the room a misaligned one needs)."""
 
     ctas: int
     stages: int
@@ -299,13 +325,16 @@ class LineBlockGeometry:
     panel_rows: int
     route: str = "streamed"
     cluster: int = 1
+    walk: int = 0
 
 
 def line_block_route(bw: int, rows: Optional[int], factored: bool) -> str:
     """The kernel a launch of block width bw and `rows` takes (`route_of` in
     line_block.cu): "streamed" where rows is None or bw, else "panels" for
     K2, and for K3 "cluster" where ceil(bw / rows) <= _MAX_CLUSTER CTAs
-    hold the block, else "two_sweep"."""
+    hold the block, else "two_sweep".  Which rows a width gets, and so the
+    crossover from the streamed kernels to the row-tiled ones, is
+    `line_block_geometry`'s."""
     if rows is None or rows >= bw:
         return "streamed"
     if not factored:
@@ -314,21 +343,27 @@ def line_block_route(bw: int, rows: Optional[int], factored: bool) -> str:
 
 
 def line_block_smem_bytes(bw: int, stages: int, entry_bytes: int, factored: bool,
-                          rows: Optional[int] = None) -> int:
+                          rows: Optional[int] = None, whole: Optional[bool] = None) -> int:
     """The shared-memory layout of the kernel `line_block_route` picks.
     Streamed (`make_layout` in line_block.cu): 2 mbarriers per stage, K3's
     double-buffered f32 u, and per stage the block and r's line, each padded
-    to 16 bytes.  Panels (`make_panel_layout`): the mbarriers, and per stage
-    a panel of `rows` block rows padded to 16 bytes plus 16 for its shift,
-    and r's line.  Cluster (`make_cluster_layout`, bf16): the mbarriers and
-    2 more, the double-buffered partial u (bw f32), u, d's old entries of
-    the CTA's rows (double-buffered), and per stage the CTA's rows (plus 16
-    bytes) and their r.  Two-sweep (`make_tiled_layout`): the mbarriers,
-    K3's u, r's line double-buffered, and per stage a panel of `rows`."""
+    to 16 bytes, the block with 16 more for its shift unless every block is
+    16-byte aligned (`whole`; None: the block's bytes are a multiple of 16,
+    as for a 16-byte-aligned pointer).  Panels (`make_panel_layout`): the
+    mbarriers, and per stage a panel of `rows` block rows padded to 16 bytes
+    plus 16 for its shift, and r's line.  Cluster (`make_cluster_layout`,
+    bf16): the mbarriers and 2 more, the double-buffered partial u (bw f32),
+    u, d's old entries of the CTA's rows (double-buffered), and per stage
+    the CTA's rows (plus 16 bytes) and their r.  Two-sweep
+    (`make_tiled_layout`): the mbarriers, K3's u, r's line double-buffered,
+    and per stage a panel of `rows`."""
     route = line_block_route(bw, rows, factored)
     if route == "streamed":
+        bb = bw * bw * entry_bytes
+        if whole is None:
+            whole = bb % 16 == 0
         u = _pad16(2 * 4 * bw) if factored else 0
-        stage = _pad16(bw * bw * entry_bytes) + _pad16(4 * bw)
+        stage = _pad16(bb) + (0 if whole else 16) + _pad16(4 * bw)
         return 16 * stages + u + stages * stage
     if route == "panels":
         return 16 * stages + stages * (_pad16(rows * bw * entry_bytes) + 16 + _pad16(4 * bw))
@@ -344,6 +379,89 @@ def _two_sweep_smem_bytes(bw: int, rows: int, stages: int, entry_bytes: int) -> 
             + stages * _pad16(rows * bw * entry_bytes))
 
 
+# ---- shared-memory banks of the streamed kernels' column walks
+
+def _bank_ways(addr: np.ndarray, live: np.ndarray) -> int:
+    """The most distinct 4-byte words any of the 32 banks is asked for by one
+    warp-wide load (one word read by several lanes is a broadcast), over the
+    loads of `addr` (..., 32 lanes: byte addresses; `live` marks the lanes
+    that load)."""
+    addr, live = np.broadcast_arrays(addr, live)
+    addr, live = addr.reshape(-1, addr.shape[-1]), live.reshape(-1, addr.shape[-1])
+    words = addr // 4
+    # an idle lane asks a bank of its own (33, 34, ...) for one word
+    bank = np.where(live, words % 32, 33 + np.arange(addr.shape[-1]))
+    key = np.sort(bank * (1 << 40) + np.where(live, words, 0), axis=1)
+    new_word = np.ones(key.shape, dtype=bool)
+    new_word[:, 1:] = key[:, 1:] != key[:, :-1]
+    new_bank = np.ones(key.shape, dtype=bool)
+    new_bank[:, 1:] = (key[:, 1:] >> 40) != (key[:, :-1] >> 40)
+    seen = np.cumsum(new_word, axis=1)
+    before = np.maximum.accumulate(np.where(new_bank, seen - 1, 0), axis=1)
+    return int((seen - before).max())
+
+
+def line_block_bank_ways(bw: int, entry_bytes: int, factored: bool, walk: int) -> int:
+    """The worst shared-memory bank conflict (ways; 1 is conflict-free) of the
+    streamed kernel's consumer loads at block width bw with column walk
+    `walk`, over every warp, every step of the walk and every placement of
+    the block in its stage (its address mod 16, a multiple of the entry's
+    bytes; placements a whole word apart shift every bank alike).  Lane l of
+    warp w is consumer thread i = 32 w + l (block row or column i), and the
+    lanes take step q together:
+      K2 (`walk` a): thread i reads B[i, c] and r[c], c = (a i + q) mod bw;
+      K3 pass 1: thread j reads W[q, j] for q <= j (r[q] is a broadcast);
+      K3 pass 2: thread i reads W[i, c] and u[c] for c >= i, c = i + q
+                 (walk 0, from the diagonal up) or bw - 1 - q (walk 1, from
+                 the last column down)."""
+    q = np.arange(bw)[:, None]
+    shifts = (0,) if entry_bytes % 4 == 0 else range(0, 4, entry_bytes)
+    worst = 1
+    for w0 in range(0, bw, 32):
+        i = np.arange(w0, w0 + 32)[None, :]
+        row = i < bw
+        for shift in shifts:
+            if not factored:
+                col = (walk * i % bw + q) % bw
+                worst = max(worst, _bank_ways(shift + (i * bw + col) * entry_bytes, row),
+                            _bank_ways(col * 4, row))
+                continue
+            worst = max(worst, _bank_ways(shift + (q * bw + i) * entry_bytes, row & (q <= i)))
+            col = i + q if walk == 0 else bw - 1 - q + 0 * i
+            live = row & (col >= i) & (col < bw)
+            worst = max(worst, _bank_ways(shift + (i * bw + col) * entry_bytes, live),
+                        _bank_ways(col * 4, live))
+    return worst
+
+
+# K2's skews in order of preference (1, the walk the GL shapes were tuned
+# with, first; one of the three is at most 2-way at every streamed width),
+# and K3's pass-2 walks (0, from the diagonal up, first)
+_K2_WALKS = (1, 0, 3)
+_K3_WALKS = (0, 1)
+
+
+@functools.lru_cache(maxsize=256)
+def line_block_walk(bw: int, entry_bytes: int, factored: bool) -> int:
+    """The streamed kernel's column walk at block width bw: the first of
+    _K2_WALKS (K2) or _K3_WALKS (K3's pass 2) whose loads are at most 2-way
+    bank-conflicted (`line_block_bank_ways`), else the least conflicted.
+    K2 keeps thread i's start at column i (a = 1) at most widths, starts
+    every thread at column 0 where that conflicts and this does not (in
+    f32 at bw = 3 (mod 4): B[i, q] is i bw + q words apart, a bank of its
+    own per thread at an odd bw), and skews by 3 at six bf16 widths (72,
+    80, 136, 144, 200, 208); K3's pass 2 walks down from the last column at
+    bw = 7 (mod 8), whose rows are bw + 1 entries apart from diagonal to
+    diagonal (88 words at bw 175)."""
+    walks = _K3_WALKS if factored else _K2_WALKS
+    ways = {}
+    for walk in walks:
+        ways[walk] = line_block_bank_ways(bw, entry_bytes, factored, walk)
+        if ways[walk] <= 2:
+            return walk
+    return min(walks, key=lambda w: ways[w])
+
+
 def _most_stages(bw, rows, entry_bytes, factored, budget, most):
     """The most stages (<= most) of the layout at `rows` within budget; 0 if
     not even one fits."""
@@ -353,11 +471,34 @@ def _most_stages(bw, rows, entry_bytes, factored, budget, most):
     return stages
 
 
+def _streamed_geometry(bs, S, bw, entry_bytes, n_sm, factored):
+    """The streamed kernels, or None past _STREAMED_MAX_BW or where one CTA
+    does not hold _STAGES stages: up to _CTAS_PER_SM CTAs an SM of _STAGES
+    stages each, or a CTA alone on its SM of up to _STREAMED_MAX_STAGES;
+    the column walk of `line_block_walk`."""
+    if bw > _STREAMED_MAX_BW.get((entry_bytes, factored), bw):
+        return None
+    per_sm = min(_CTAS_PER_SM, _SMEM_PER_SM // (
+        line_block_smem_bytes(bw, _STAGES, entry_bytes, factored) + _SMEM_RESERVED))
+    budget = min(_SMEM_PER_SM - _SMEM_RESERVED, _SMEM_PER_BLOCK)
+    stages = _STAGES if per_sm > 1 else _most_stages(bw, None, entry_bytes, factored, budget,
+                                                     _STREAMED_MAX_STAGES)
+    if stages < _STAGES:
+        return None
+    return LineBlockGeometry(ctas=min(bs * S, n_sm * max(per_sm, 1)), stages=stages,
+                             smem_bytes=line_block_smem_bytes(bw, stages, entry_bytes, factored),
+                             bulk=True, panel_rows=bw,
+                             walk=line_block_walk(bw, entry_bytes, factored))
+
+
 def _panel_geometry(bs, S, bw, entry_bytes, n_sm):
     """K2's panel kernel: the most rows (a multiple of _PANEL_ROW_STEP, at
     most _PANEL_MAX_ROWS) at which _PANEL_CTAS_PER_SM CTAs an SM hold
     _PANEL_STAGES stages each, then 2 CTAs, then 1; a block too wide for 8
-    rows (about bw > 3,200 in f32) takes fewer rows, then 1 stage."""
+    rows (about bw > 3,200 in f32) takes fewer rows, then 1 stage.  Where
+    the CTAs an SM keep less than _BYTES_IN_FLIGHT of panels in flight
+    ((stages - 1) each), more stages, as many as fit up to
+    _PANEL_MAX_STAGES."""
     def fits(rows, stages):
         return _most_stages(bw, rows, entry_bytes, False, budget, stages) == stages
 
@@ -373,6 +514,9 @@ def _panel_geometry(bs, S, bw, entry_bytes, n_sm):
         if not rows:
             raise ValueError(f"line_block_geometry: bw={bw} leaves no room for a panel row")
     stages = _most_stages(bw, rows, entry_bytes, False, budget, _PANEL_STAGES)
+    want = 1 + -(-_BYTES_IN_FLIGHT // (per_sm * rows * bw * entry_bytes))
+    if stages == _PANEL_STAGES and want > stages:
+        stages = _most_stages(bw, rows, entry_bytes, False, budget, min(want, _PANEL_MAX_STAGES))
     units = bs * S * -(-bw // rows)
     return LineBlockGeometry(ctas=min(units, n_sm * per_sm), stages=stages,
                              smem_bytes=line_block_smem_bytes(bw, stages, entry_bytes, False, rows),
@@ -387,7 +531,16 @@ def _cluster_geometry(bs, S, bw, n_sm):
     other CTAs on its SM compute), the most CTAs an SM (at most
     _CLUSTER_CTAS_PER_SM), and at that the smallest cluster C (rows a
     multiple of 8, at least bw / C), so the most clusters are resident.  At
-    bw 350: C 4 of 88 rows (67 KB), 3 CTAs an SM."""
+    bw 350: C 4 of 88 rows (67 KB), 3 CTAs an SM.  But where clusters of 2
+    hold the block in 2 stages, _CLUSTER_CTAS_PER_SM an SM (bw 169 to 190),
+    those: an item's rows load while the CTA computes on the last's (bw 175:
+    88 rows, 69 KB)."""
+    rows = _PANEL_ROW_STEP * -(-bw // (2 * _PANEL_ROW_STEP))
+    smem = line_block_smem_bytes(bw, 2, 2, True, rows)
+    if rows < bw and _CLUSTER_CTAS_PER_SM * (smem + _SMEM_RESERVED) <= _SMEM_PER_SM:
+        return LineBlockGeometry(ctas=2 * min(bs * S, n_sm * _CLUSTER_CTAS_PER_SM // 2), stages=2,
+                                 smem_bytes=smem, bulk=True, panel_rows=rows, route="cluster",
+                                 cluster=2)
     for per_sm in range(_CLUSTER_CTAS_PER_SM, 0, -1):
         budget = min(_SMEM_PER_SM // per_sm - _SMEM_RESERVED, _SMEM_PER_BLOCK)
         for c in range(2, _MAX_CLUSTER + 1):
@@ -441,45 +594,51 @@ def _two_sweep_geometry(bs, S, bw, entry_bytes, n_sm):
 def line_block_geometry(bs: int, S: int, bw: int, entry_bytes: int, n_sm: int,
                         factored: bool = False) -> LineBlockGeometry:
     """Choose K2/K3's launch geometry for bs*S blocks of bw x bw entries of
-    `entry_bytes` on a card of `n_sm` SMs.  A block that fits one CTA's
-    shared memory (227 KB; bw <= 240 in f32, <= 339 in bf16, <= 337 for K3)
-    takes the streamed kernels: _CTAS_PER_SM CTAs of _STAGES stages each,
-    fewer CTAs per SM where shared memory does not hold them, then one
-    stage.  A wider block takes a row-tiled kernel, by shape alone
-    (`line_block_route`; no launch falls back to another):
+    `entry_bytes` on a card of `n_sm` SMs.  A block up to the streamed
+    kernels' crossover (_STREAMED_MAX_BW: bw <= 137 in f32, <= 240 in bf16,
+    <= 168 for K3) takes the streamed kernels (`_streamed_geometry`: up to
+    _CTAS_PER_SM CTAs an SM of _STAGES stages, a lone CTA up to 3; the
+    column walk of `line_block_walk`; the GL shapes 8 CTAs of 2); a wider
+    block takes a row-tiled kernel, by width alone (no launch falls back to
+    another):
       - K2: the panel kernel (`_panel_geometry`: panels of 24 rows or fewer,
-        3 CTAs an SM where each holds 2 stages; 24 rows at bw 280 and 350,
-        f32 and bf16);
+        3 CTAs an SM of 2 stages each, more stages where they keep less
+        than 32 KB in flight; 24 rows at bw 175, 280 and 350);
       - K3: the cluster kernel where at most 8 CTAs hold a block
-        (`_cluster_geometry`: one stage a CTA, the most CTAs an SM up to 3,
-        then the smallest cluster; bw 350: 4 CTAs of 88 rows, 3 an SM),
-        which is up to bw 916 (8 CTAs, one an SM); a wider block takes the
-        two-sweep kernel (`_two_sweep_geometry`), which reads W twice.
+        (`_cluster_geometry`: 2 CTAs of 2 stages, 3 an SM, at bw 169 to
+        190, bw 175: 88 rows; else one stage a CTA, the most CTAs an SM up
+        to 3, then the smallest cluster, bw 350: 4 CTAs of 88 rows, 3 an
+        SM), which is up to bw 916 (8 CTAs, one an SM); a wider block takes
+        the two-sweep kernel (`_two_sweep_geometry`), which reads W twice.
     Raises ValueError for a bad shape, and for a bw so large that r's line
     (and K3's u) leave no room for one row: above about 12,900 for K3,
     19,300 for K2 in f32."""
     if min(bs, S, bw, entry_bytes, n_sm) < 1:
         raise ValueError(f"line_block_geometry: bad shape bs={bs} S={S} bw={bw} n_sm={n_sm}")
-    per_sm, stages = _CTAS_PER_SM, _STAGES
-
-    def smem(st):
-        return line_block_smem_bytes(bw, st, entry_bytes, factored)
-
-    while per_sm * (smem(stages) + _SMEM_RESERVED) > _SMEM_PER_SM:
-        if per_sm > 1:
-            per_sm -= 1
-        elif stages > 1:
-            stages = 1
-        else:
-            break
-    if smem(stages) <= _SMEM_PER_BLOCK:
-        return LineBlockGeometry(ctas=min(bs * S, n_sm * per_sm), stages=stages,
-                                 smem_bytes=smem(stages), bulk=bw * bw * entry_bytes % 16 == 0,
-                                 panel_rows=bw)
+    geo = _streamed_geometry(bs, S, bw, entry_bytes, n_sm, factored)
+    if geo is not None:
+        return geo
     if not factored:
         return _panel_geometry(bs, S, bw, entry_bytes, n_sm)
     return (_cluster_geometry(bs, S, bw, n_sm)
             or _two_sweep_geometry(bs, S, bw, entry_bytes, n_sm))
+
+
+def line_block_launch_args(geo: LineBlockGeometry, bw: int, entry_bytes: int, factored: bool,
+                           ptr: int):
+    """(smem_bytes, flags) of a launch of `geo` on blocks at address ptr.  The
+    C launcher's `flags`: bit 0 `whole` (every block, or the two-sweep
+    kernel's every panel, 16-byte aligned: its bytes a multiple of 16 at a
+    16-byte-aligned ptr) and, above it, the streamed walk.  A streamed
+    launch whose blocks are not all aligned lays out 16 more bytes a stage
+    for the shift."""
+    if geo.route == "two_sweep":
+        return geo.smem_bytes, int(geo.bulk and ptr % 16 == 0)
+    if geo.route != "streamed":
+        return geo.smem_bytes, 0
+    whole = bw * bw * entry_bytes % 16 == 0 and ptr % 16 == 0
+    return (line_block_smem_bytes(bw, geo.stages, entry_bytes, factored, whole=whole),
+            int(whole) | geo.walk << 1)
 
 
 # point blocks: the widths csrc/point_block.cu instantiates (n_mi of
@@ -592,12 +751,12 @@ def _launch_line_block(kernels, blocks, r, nt, d, c1, c2):
             bw, S, bs, geom.ctas, geom.tile, geom.stages, geom.smem_bytes, int(bulk), stream)
         _cuda.check("point_block", kernels.point_counted, code)
         return d
-    geom = line_block_geometry(bs, S, bw, blocks.element_size(), n_sm, kernels.factored)
-    bulk = geom.bulk and blocks.data_ptr() % 16 == 0
+    eb = blocks.element_size()
+    geom = line_block_geometry(bs, S, bw, eb, n_sm, kernels.factored)
+    smem, flags = line_block_launch_args(geom, bw, eb, kernels.factored, blocks.data_ptr())
     code = getattr(_cuda.library("line_block"), fn)(
         blocks.data_ptr(), r.data_ptr(), d.data_ptr(), _cuda.ptr(c1), _cuda.ptr(c2),
-        m, nt, S, bs, geom.ctas, geom.panel_rows, geom.stages, geom.smem_bytes, int(bulk),
-        stream,
+        m, nt, S, bs, geom.ctas, geom.panel_rows, geom.stages, smem, flags, stream,
     )
     _cuda.check("line_block", kernels.line_counted[geom.route], code)
     return d

@@ -1,12 +1,15 @@
 """Launch geometry of the line-block kernels K2 and K3 (csrc/line_block.cu),
 computed in Python by `ops.fused_smoother.line_block_geometry` and passed to
-the kernels: shared memory within a Hopper SM's, bytes in flight at the GL
-shapes, the 1-D bulk copy chosen only for blocks whose bytes are a multiple
-of 16, and blocks too large for one CTA's shared memory on the row-tiled
-kernels their width gives (K2 on (item, panel) units, K3 on a thread-block
-cluster or, past 8 CTAs, in two sweeps), each block row computed once.  The
-kernels themselves run only on the card (chip_smoke.py holds them against
-their plain versions there)."""
+the kernels: shared memory within a Hopper SM's, bytes in flight, every
+block moved by a bulk copy (of the whole block where all are 16-byte
+aligned, else of its aligned interior), the streamed kernels' column walks
+at most 2-way bank-conflicted, the GL shapes' geometry pinned, and blocks
+wider than the streamed ring holds in 2 stages of 2 CTAs an SM on the
+row-tiled kernels their width gives (K2 on (item, panel) units, K3 on a
+thread-block cluster or, past 8 CTAs, in two sweeps), each block row
+computed once; and the plain block applies at odd nt against the JAX
+package's.  The kernels themselves run only on the card (chip_smoke.py
+holds them against their plain versions there)."""
 
 import numpy as np
 import pytest
@@ -33,20 +36,76 @@ CASES = {
 }
 
 
+def _per_sm(geo, n_sm):
+    return -(-geo.ctas // n_sm)
+
+
+def _in_flight(geo, bw, eb):
+    """Bytes of blocks (panels, a cluster CTA's rows) in flight per SM while
+    each CTA computes on one: (stages - 1) a CTA."""
+    unit = {"streamed": bw, "panels": geo.panel_rows, "cluster": geo.panel_rows}[geo.route]
+    return _per_sm(geo, H100_SMS) * (geo.stages - 1) * unit * bw * eb
+
+
 @pytest.mark.parametrize("case", list(CASES))
 def test_line_block_geometry(case):
     bs, S, bw, eb, factored, n_sm = CASES[case]
     geo = fs.line_block_geometry(bs, S, bw, eb, n_sm, factored)
     # shared memory: the kernel's layout, within one block's, and the CTAs
     # that share an SM within the SM's
-    assert geo.smem_bytes == fs.line_block_smem_bytes(bw, geo.stages, eb, factored)
+    assert geo.route == fs.line_block_route(bw, geo.panel_rows, factored)
+    assert geo.smem_bytes == fs.line_block_smem_bytes(bw, geo.stages, eb, factored,
+                                                      geo.panel_rows)
     # CTA c walks the items c, c + ctas, ... (csrc/line_block.cu), which
     # takes each item once for any ctas >= 1; ctas <= bs*S leaves none idle
-    assert geo.stages >= 1 and 1 <= geo.ctas <= bs * S
+    # (the panel kernel's units: bs*S*panels)
+    units = bs * S * (-(-bw // geo.panel_rows) if geo.route == "panels" else 1)
+    assert geo.stages >= 1 and 1 <= geo.ctas <= units
     assert geo.smem_bytes <= SMEM_PER_BLOCK
     assert -(-geo.ctas // n_sm) * (geo.smem_bytes + 1024) <= SMEM_PER_SM
-    # bulk copies only for blocks whose bytes are a multiple of 16
-    assert geo.bulk == (bw * bw * eb % 16 == 0)
+    # every block by a bulk copy: of the whole block where all are 16-byte
+    # aligned (bytes a multiple of 16 at an aligned pointer), else of its
+    # aligned interior, the stage holding 16 more bytes for the shift
+    assert geo.bulk
+    if geo.route == "streamed":
+        whole = bw * bw * eb % 16 == 0
+        assert fs.line_block_launch_args(geo, bw, eb, factored, 1 << 20) == (
+            geo.smem_bytes, int(whole) | geo.walk << 1)
+        smem, flags = fs.line_block_launch_args(geo, bw, eb, factored, (1 << 20) + eb)
+        assert flags == geo.walk << 1
+        assert smem == geo.smem_bytes + (16 * geo.stages if whole else 0)
+
+
+# the GL shapes' streamed geometry (ctas, stages, smem_bytes, walk): as
+# before the mid-width redesign, so their launches and sums stay the same
+GL_PINNED = {
+    "gl-fine-k2-f32": (1056, 2, 25568, 1),
+    "gl-fine-k2-bf16": (1056, 2, 13024, 1),
+    "gl-fine-k3": (1056, 2, 13472, 0),
+    "gl-level1-k2-f32": (1056, 2, 25568, 1),
+    "gl-level1-k3": (1056, 2, 13472, 0),
+    "bw42-k2-f32": (288, 2, 14496, 1),
+    "bw42-k2-bf16": (288, 2, 7488, 1),
+    "bw42-k3": (288, 2, 7824, 0),
+}
+
+
+@pytest.mark.parametrize("case", list(GL_PINNED))
+def test_line_block_geometry_pinned_at_gl_shapes(case):
+    """The GL fine level and level 1 (bw 56) and the odd shape bw 42 keep
+    the streamed kernels' geometry, CTAs, stages and shared memory as
+    before, and their column walk (K2 thread i from column i; K3 pass 2
+    from the diagonal up); bw 42's bf16 stage grew by 16 bytes for the
+    shifted copy of its 3,528-byte blocks.  The transport example's bw 40
+    keeps them too."""
+    bs, S, bw, eb, factored, n_sm = CASES[case]
+    geo = fs.line_block_geometry(bs, S, bw, eb, n_sm, factored)
+    assert geo.route == "streamed" and geo.panel_rows == bw
+    assert (geo.ctas, geo.stages, geo.smem_bytes, geo.walk) == GL_PINNED[case]
+    for eb, factored in ((4, False), (2, False), (2, True)):
+        geo = fs.line_block_geometry(5, 512, 40, eb, H100_SMS, factored)
+        assert (geo.route, geo.ctas, geo.stages, geo.walk) == ("streamed", 1056, 2,
+                                                               0 if factored else 1)
 
 
 @pytest.mark.parametrize("case", [c for c in CASES if c.startswith("gl-")])
@@ -61,24 +120,143 @@ def test_line_block_geometry_keeps_bytes_in_flight(case):
     assert geo.ctas // n_sm * (geo.stages - 1) * bw * bw * eb >= 32 * 1024
 
 
+# the widest block of the streamed kernels (their crossover to the row-tiled
+# ones) and of one CTA's shared memory, by kernel
+STREAMED = {"k2-f32": (137, 240, 4, False), "k2-bf16": (240, 339, 2, False),
+            "k3": (168, 337, 2, True)}
+
+
 @pytest.mark.parametrize("largest,eb,factored", [(240, 4, False), (339, 2, False), (337, 2, True)],
                          ids=["k2-f32", "k2-bf16", "k3"])
 def test_line_block_geometry_rejects_what_does_not_fit(largest, eb, factored):
-    """The largest block each kernel stages whole runs one CTA of one stage
-    on the streamed path; one more row and column takes a row-tiled kernel
-    (K2 the panel kernel, K3 the cluster kernel), whose stages fit one
-    CTA's shared memory.  A bad shape still raises."""
-    geo = fs.line_block_geometry(1, 1, largest, eb, H100_SMS, factored)
-    assert geo.stages == 1 and geo.smem_bytes <= SMEM_PER_BLOCK
-    assert geo.panel_rows == largest and geo.route == "streamed"
-    wide = fs.line_block_geometry(1, 1, largest + 1, eb, H100_SMS, factored)
-    assert 1 <= wide.panel_rows < largest + 1
-    assert wide.route == ("cluster" if factored else "panels")
-    assert wide.smem_bytes == fs.line_block_smem_bytes(largest + 1, wide.stages, eb, factored,
-                                                       wide.panel_rows)
-    assert wide.smem_bytes <= SMEM_PER_BLOCK
+    """The largest block one CTA could stage whole (bw 240 in f32, 339 in
+    bf16, 337 for K3) no longer takes the streamed kernel, whose ring would
+    hold one stage: it takes a row-tiled kernel (K2 the panel kernel, K3
+    the cluster kernel), and so does one more row and column.  The streamed
+    kernels' widest block (bw 137 in f32: one CTA of 3 stages; 240 in bf16:
+    one CTA of 2; 168 for K3: 2 CTAs of 2) keeps a block in flight while
+    one is computed on, 2 in f32 and K3; one more row and column takes the
+    row-tiled kernel.  Their stages fit one CTA's shared memory.  A bad
+    shape still raises."""
+    widest = {240: 137, 339: 240, 337: 168}[largest]
+    geo = fs.line_block_geometry(1, 1, widest, eb, H100_SMS, factored)
+    assert geo.panel_rows == widest and geo.route == "streamed"
+    per_sm = (SMEM_PER_SM // (geo.smem_bytes + 1024), geo.stages)
+    assert per_sm == {137: (1, 3), 240: (1, 2), 168: (2, 2)}[widest]
+    for bw in (widest + 1, largest, largest + 1):
+        wide = fs.line_block_geometry(1, 1, bw, eb, H100_SMS, factored)
+        assert 1 <= wide.panel_rows < bw
+        assert wide.route == ("cluster" if factored else "panels")
+        assert wide.smem_bytes == fs.line_block_smem_bytes(bw, wide.stages, eb, factored,
+                                                           wide.panel_rows)
+        assert wide.smem_bytes <= SMEM_PER_BLOCK
     with pytest.raises(ValueError, match="bad shape"):
         fs.line_block_geometry(0, 4, 56, eb, H100_SMS, factored)
+
+
+@pytest.mark.parametrize("kernel", list(STREAMED))
+def test_line_block_geometry_every_width(kernel):
+    """Every width one CTA could stage whole, at the long window's level-1
+    batch (bs 8 x 256 lines): the route `line_block_route` gives for the
+    geometry's rows, streamed exactly to the kernel's crossover; every
+    block by a bulk copy (`bulk`; the whole block at an aligned pointer
+    where its bytes are a multiple of 16); from bw 56 up,
+    at least 32 KB of blocks (panels, a cluster CTA's rows) in flight per SM
+    while each CTA computes on one, on every route of more than one stage
+    (the cluster kernel's blocks from bw 190 take one stage a CTA, whose
+    next item loads while the SM's other CTAs compute)."""
+    widest, largest, eb, factored = STREAMED[kernel]
+    for bw in range(1, largest + 1):
+        geo = fs.line_block_geometry(8, 256, bw, eb, H100_SMS, factored)
+        assert geo.route == fs.line_block_route(bw, geo.panel_rows, factored)
+        assert (geo.route == "streamed") == (bw <= widest), bw
+        assert geo.bulk
+        smem, flags = fs.line_block_launch_args(geo, bw, eb, factored, 1 << 20)
+        assert smem == geo.smem_bytes
+        if geo.route == "streamed":
+            assert flags & 1 == (bw * bw * eb % 16 == 0)
+        if bw >= 56 and (geo.stages > 1 or bw <= widest):
+            assert _in_flight(geo, bw, eb) >= 32 * 1024, (bw, geo)
+
+
+def _naive_ways(addrs):
+    """Wavefronts of one warp-wide load, lane by lane."""
+    banks = {}
+    for a in addrs:
+        banks.setdefault(a // 4 % 32, set()).add(a // 4)
+    return max(len(w) for w in banks.values())
+
+
+@pytest.mark.parametrize("kernel", list(STREAMED))
+def test_line_block_walk_banks(kernel):
+    """At every width the streamed kernel takes, its column walk
+    (`line_block_walk`) keeps each warp-wide shared-memory load at most
+    2-way bank-conflicted (`line_block_bank_ways`: K2's block rows and r;
+    K3's pass-1 columns and pass-2 rows and u), at every placement of the
+    block in its stage.  The GL widths keep their walk.  The bank function
+    agrees with a lane-by-lane count on K2's 16-way skew at bw 175 in f32
+    (rows 176 words apart from diagonal to diagonal) and on K3's pass 2
+    from the diagonal at bw 63 (rows 32 bf16 words apart)."""
+    widest, _, eb, factored = STREAMED[kernel]
+    for bw in range(1, widest + 1):
+        walk = fs.line_block_walk(bw, eb, factored)
+        assert fs.line_block_bank_ways(bw, eb, factored, walk) <= 2, (bw, walk)
+    for bw in (40, 42, 56):
+        assert fs.line_block_walk(bw, eb, factored) == (0 if factored else 1)
+    assert fs.line_block_bank_ways(175, 4, False, 1) == _naive_ways(
+        [(i * 175 + (i + 0) % 175) * 4 for i in range(32)]) == 16
+    assert fs.line_block_bank_ways(63, 2, True, 0) == max(
+        _naive_ways([shift + (i * 63 + i + q) * 2 for i in range(w0, min(63, w0 + 32))
+                     if i + q < 63])
+        for shift in (0, 2) for w0 in (0, 32) for q in range(63)
+        if any(i + q < 63 for i in range(w0, min(63, w0 + 32)))) > 2
+
+
+@pytest.mark.parametrize("nt", [3, 5])
+@pytest.mark.parametrize("factored", [False, True], ids=["k2", "k3"])
+def test_plain_block_apply_odd_nt_matches_jax(nt, factored):
+    """At odd nt (bw 21 and 35 at m 7: blocks whose bytes are not a multiple
+    of 16 in f32 and bf16), K2's and K3's plain versions equal the JAX
+    package's line-block route (`MultigridSolver._block_apply`, per sample)
+    in f64 within 1e-10, on random blocks (upper-triangular for K3) of bs 2
+    and S 3 lines, with and without the Chebyshev epilogue."""
+    import types
+
+    import jax.numpy as jnp
+    import torch
+
+    from mech_nn_discovery_pde_tpu.ops.system import PDESystem as JaxSystem
+    from mech_nn_discovery_pde_tpu.solvers.multigrid import MultigridSolver as JaxSolver
+
+    m, bs, S = 7, 2, 3
+    bw = nt * m
+    rng = np.random.default_rng(nt + 10 * factored)
+    blocks = rng.standard_normal((bs, S, bw, bw)) / bw
+    if factored:
+        blocks = np.triu(blocks)
+    r = rng.standard_normal((bs, nt * S * m))
+    x0 = rng.standard_normal((bs, nt * S * m))
+    var_set = types.SimpleNamespace(coord_dims=(nt, 3, 1), n_mi=m)
+    sysk = types.SimpleNamespace(var_set=var_set)
+    sysk.line_vec_to_blocks = lambda v, axis=0: JaxSystem.line_vec_to_blocks(sysk, v, axis)
+    sysk.line_blocks_to_vec = lambda z, axis=0: JaxSystem.line_blocks_to_vec(sysk, z, axis)
+    solver = types.SimpleNamespace(config=types.SimpleNamespace(mg_block_smoother="line"),
+                                   _factored_binv=factored)
+    want = np.stack([np.asarray(JaxSolver._block_apply(solver, sysk, jnp.asarray(blocks[b]),
+                                                       jnp.asarray(r[b]))) for b in range(bs)])
+    plain = fs.factored_block_apply_plain if factored else fs.block_apply_plain
+    tb, tr = torch.tensor(blocks), torch.tensor(r)
+
+    def rel(a, b):
+        a = a.numpy() if hasattr(a, "numpy") else a
+        return float(np.abs(a - b).max() / np.abs(b).max())
+
+    assert rel(plain(tb, tr, nt), want) <= 1e-10
+    c1 = torch.tensor([0.5, -2.0], dtype=torch.float64)
+    c2 = torch.tensor([3.0, 0.25], dtype=torch.float64)
+    d = torch.tensor(x0)
+    plain(tb, tr, nt, d=d, c1=c1, c2=c2)
+    assert rel(d, c1[:, None].numpy() * x0 + c2[:, None].numpy() * want) <= 1e-10
 
 
 WIDE = {
@@ -86,7 +264,9 @@ WIDE = {
     # (bw 280 = nt 40 x m 7 and bw 350 = nt 50 x m 7, at 64 lines and at the
     # long-window layer's fine level, 1024 lines of bs 8; bw 345 and 406:
     # K3 clusters of 4 and 6 CTAs; bw 980: K3 past the cluster), the K3
-    # dispatch edges, and a very wide block
+    # dispatch edges, and a very wide block; the long window's level 1, bw
+    # 175, in f32 and for K3 (clusters of 2 CTAs of 2 stages, which bw 190
+    # no longer holds)
     "bw280-k2-f32": (2, 64, 280, 4, False),
     "bw350-k2-f32": (2, 64, 350, 4, False),
     "bw350-k2-bf16": (2, 64, 350, 2, False),
@@ -94,6 +274,9 @@ WIDE = {
     "long-window-k2-f32": (8, 1024, 350, 4, False),
     "long-window-k2-bf16": (8, 1024, 350, 2, False),
     "long-window-k3": (8, 1024, 350, 2, True),
+    "level1-k2-f32": (8, 256, 175, 4, False),
+    "level1-k3": (8, 256, 175, 2, True),
+    "bw190-k3": (2, 64, 190, 2, True),
     "bw241-k2-f32": (2, 64, 241, 4, False),
     "bw345-k3": (2, 6, 345, 2, True),
     "bw406-k3": (2, 6, 406, 2, True),
@@ -176,7 +359,9 @@ def test_line_block_geometry_tiles_wide_blocks(case):
         assert factored and eb == 2 and geo.bulk
         C = geo.cluster
         assert 2 <= C <= 8 and C == -(-bw // rows) and C * rows >= bw > (C - 1) * rows
-        assert geo.stages == 1 and geo.ctas % C == 0
+        # one stage, or 2 in clusters of 2 at the mid widths (bw 175)
+        assert geo.stages == 1 or (C == 2 and geo.stages == 2 and bw < 191)
+        assert geo.ctas % C == 0
         per_sm = -(-geo.ctas // H100_SMS)
         assert 1 <= geo.ctas // C <= min(bs * S, 3 * H100_SMS // C)
         assert per_sm <= 3 and per_sm * (geo.smem_bytes + 1024) <= SMEM_PER_SM
@@ -195,17 +380,18 @@ def test_line_block_geometry_tiles_wide_blocks(case):
         assert (_row_cover(geo, bs, S, bw) == 1).all()
 
 
-@pytest.mark.parametrize("bw,route", [(337, "streamed"), (338, "cluster"), (916, "cluster"),
+@pytest.mark.parametrize("bw,route", [(168, "streamed"), (169, "cluster"), (175, "cluster"),
+                                      (337, "cluster"), (338, "cluster"), (916, "cluster"),
                                       (917, "two_sweep")])
 def test_k3_dispatch_edge(bw, route):
     """K3's kernel follows from the width alone, with the edges the
-    geometry's docstring states: the streamed kernel to bw 337, a cluster
-    of up to 8 CTAs (W read once) to bw 916, the two-sweep kernel above,
-    at any batch."""
+    geometry's docstring states: the streamed kernel to bw 168 (2 stages in
+    2 CTAs an SM), a cluster of up to 8 CTAs (W read once) to bw 916, the
+    two-sweep kernel above, at any batch."""
     for bs, S in ((1, 1), (8, 1024)):
         assert fs.line_block_geometry(bs, S, bw, 2, H100_SMS, True).route == route
     doc = " ".join(fs.line_block_geometry.__doc__.split())
-    assert "<= 337 for K3" in doc and "up to bw 916" in doc
+    assert "<= 168 for K3" in doc and "up to bw 916" in doc
 
 
 # ---- the point-block kernels (csrc/point_block.cu): nt == 1, bw = n_mi
@@ -283,7 +469,7 @@ class _FakeLib:
 
 
 @pytest.mark.parametrize("nt,m", [(1, 2), (1, 3), (1, 4), (1, 5), (1, 7), (8, 7), (6, 5),
-                                  (2, 7), (1, 42), (40, 7), (50, 7)])
+                                  (2, 7), (1, 42), (40, 7), (50, 7), (25, 7), (3, 7)])
 def test_block_apply_dispatch(nt, m, monkeypatch):
     """The launcher picks the point-block kernels exactly for nt == 1 at the
     widths they instantiate, which are the n_mi of every VariableSet layout
@@ -291,7 +477,8 @@ def test_block_apply_dispatch(nt, m, monkeypatch):
     one), and the line kernels for every nt > 1, with the argument count
     of the C launcher it calls, the geometry's launch arguments, and the
     launch counted under the kernel of its route (at bw 280 and 350 the
-    row-tiled ones)."""
+    row-tiled ones; the launch's shared memory and flags those of
+    `line_block_launch_args` for the blocks' address)."""
     import torch
 
     from mech_nn_discovery_pde_torch.ops import _cuda
@@ -322,13 +509,13 @@ def test_block_apply_dispatch(nt, m, monkeypatch):
         if point:
             assert counted_call == (lib, kernels.point_counted)
             continue
-        geo = fs.line_block_geometry(bs, S, bw, torch.empty((), dtype=dtype).element_size(),
-                                     H100_SMS, kernels.factored)
+        eb = torch.empty((), dtype=dtype).element_size()
+        geo = fs.line_block_geometry(bs, S, bw, eb, H100_SMS, kernels.factored)
         assert args[5:14] == (m, nt, S, bs, geo.ctas, geo.panel_rows, geo.stages,
-                              geo.smem_bytes, int(geo.bulk))
+                              *fs.line_block_launch_args(geo, bw, eb, kernels.factored, args[0]))
         assert counted_call == (lib, kernels.line_counted[geo.route])
-        assert (geo.route != "streamed") == (bw > {torch.float32: 240, bf16: 339}[dtype]
-                                             if not kernels.factored else bw > 337)
+        assert (geo.route != "streamed") == (bw > {torch.float32: 137, bf16: 240}[dtype]
+                                             if not kernels.factored else bw > 168)
 
 
 def _bank_ways(byte_addrs):

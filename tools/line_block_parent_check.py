@@ -4,18 +4,20 @@
 
 OTHER_CHECKOUT is another commit's tree (for example the parent's, unpacked
 with `git archive`).  Its `csrc/line_block.cu` is built with this
-checkout's nvcc flags and its `ops/fused_smoother.line_block_geometry` is
-swapped in for this checkout's while its turn runs (`OtherLineBlock`); the
-C launchers keep their signature, so the solver runs either unchanged.
+checkout's nvcc flags and its `ops/fused_smoother.line_block_geometry` (and
+its `line_block_launch_args`, where it has one) are swapped in for this
+checkout's while its turn runs (`OtherLineBlock`); the C launchers keep
+their signature, so the solver runs either unchanged.
 In one process, each comparison in turns other, this, this, other:
 
 1. the streamed K2 (f32, bf16) and K3 at the GL fine level (bs 32, 1024
    lines of 56 x 56) give the other checkout's output bit for bit, with and
    without the Chebyshev epilogue;
 2. K2 f32, K2 bf16 and K3 at chip_smoke.py's timed wide shapes (bw 280 and
-   350, bs 2 x 64 lines, and 4 x as many lines) on each checkout's kernels:
-   each against the plain version (1e-5), then alone, back to back and on
-   the device (a CUDA graph of 20 launches);
+   350, bs 2 x 64 lines, and 4 x as many lines), then at the long window's
+   level-1 shape (bs 8, 256 lines of 175 x 175), on each checkout's
+   kernels: each against the plain version (1e-5), then alone, back to back
+   and on the device (a CUDA graph of 20 launches);
 3. the long-window layer step ((50, 32, 32), bs 8, downsample_first=True)
    in f32 and 'bf16_factored' storage: one step on each checkout's kernels
    gives its forward rel_rnorm (this checkout's must be within 1 % of the
@@ -33,6 +35,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import dataclasses
 import importlib.util
 import json
 import os
@@ -55,8 +58,8 @@ from mech_nn_discovery_pde_torch.ops import fused_smoother as fs  # noqa: E402
 class OtherLineBlock:
     """Another checkout's line-block kernels: its csrc/line_block.cu, built
     with this checkout's nvcc flags into its own _build/, and its
-    ops/fused_smoother.line_block_geometry, swapped in for this checkout's
-    by `active()`.  The wrappers keep their epilogue, so the solver and
+    ops/fused_smoother.line_block_geometry and launch arguments, swapped in
+    for this checkout's by `active()`.  The wrappers keep their epilogue, so the solver and
     `block_apply` run the other's kernels unchanged (their launches count
     under this checkout's names)."""
 
@@ -79,25 +82,41 @@ class OtherLineBlock:
         sys.modules[spec.name] = mod  # its dataclasses look their module up
         spec.loader.exec_module(mod)
         self.geometry_fn = mod.line_block_geometry
+        self.launch_args_fn = getattr(mod, "line_block_launch_args", None)
+        self.geometry_type = mod.LineBlockGeometry
         log(f"other line_block.cu from {pkg} built in {time.perf_counter() - t0:.1f} s")
 
     def geometry(self, bs, S, bw, entry_bytes, n_sm, factored=False):
-        """The other checkout's geometry as this one's type; a launch of
-        blocks wider than one CTA counts as "panels" (K2) or "two_sweep"
-        (K3), the routes whose launchers take the other's arguments."""
+        """The other checkout's geometry as this one's type (its route where
+        it names one; else a launch of blocks wider than one CTA counts as
+        "panels" (K2) or "two_sweep" (K3), the routes whose launchers take
+        the other's arguments)."""
         g = self.geometry_fn(bs, S, bw, entry_bytes, n_sm, factored)
-        route = "streamed" if g.panel_rows == bw else "two_sweep" if factored else "panels"
+        route = getattr(g, "route", None) or (
+            "streamed" if g.panel_rows == bw else "two_sweep" if factored else "panels")
         return fs.LineBlockGeometry(ctas=g.ctas, stages=g.stages, smem_bytes=g.smem_bytes,
-                                    bulk=g.bulk, panel_rows=g.panel_rows, route=route)
+                                    bulk=g.bulk, panel_rows=g.panel_rows, route=route,
+                                    cluster=getattr(g, "cluster", 1), walk=getattr(g, "walk", 0))
+
+    def launch_args(self, geo, bw, entry_bytes, factored, ptr):
+        """The other checkout's (smem_bytes, flags) of a launch: its own
+        `line_block_launch_args` where it has one, else its geometry's
+        shared memory and the bulk copy where the blocks are 16-byte
+        aligned."""
+        if self.launch_args_fn is None:
+            return geo.smem_bytes, int(geo.bulk and ptr % 16 == 0)
+        return self.launch_args_fn(self.geometry_type(**dataclasses.asdict(geo)), bw,
+                                   entry_bytes, factored, ptr)
 
     @contextlib.contextmanager
     def active(self):
-        own_lib, own_geometry = _cuda.library("line_block"), fs.line_block_geometry
+        own = _cuda.library("line_block"), fs.line_block_geometry, fs.line_block_launch_args
         _cuda._LIBS["line_block"], fs.line_block_geometry = self.lib, self.geometry
+        fs.line_block_launch_args = self.launch_args
         try:
             yield
         finally:
-            _cuda._LIBS["line_block"], fs.line_block_geometry = own_lib, own_geometry
+            _cuda._LIBS["line_block"], fs.line_block_geometry, fs.line_block_launch_args = own
 
 
 def turns(other):
@@ -184,6 +203,25 @@ def wide_turns(dev, seed, other, bs=2):
     return rows
 
 
+def level1_turns(dev, seed, other, bs=8, S=256, nt=25, m=7):
+    """Part 2b: K2 f32, K2 bf16 and K3 at the long window's level-1 shape
+    (bs 8, 256 lines of 175 x 175) on random SPD blocks, on each
+    checkout's kernels (`kernel_turns`)."""
+    g = torch.Generator(device=dev).manual_seed(seed + 7)
+    bw = nt * m
+    x = torch.randn((bs, nt * S * m), generator=g, device=dev)
+    binv, W = cs.spd_blocks(bs, S, bw, g, dev)
+    operands = {"k2": binv, "k2_bf16": binv.to(torch.bfloat16), "k3": W}
+    rows = {}
+    for name, key, kern, plain, factored in cs.line_kernels():
+        rows[f"{key} level 1"] = kernel_turns(
+            f"{name} at the long window's level-1 shape (bs {bs}, {S} lines of {bw}^2)", kern,
+            plain, operands[key], x, nt, factored, other)
+    del binv, W, operands
+    torch.cuda.empty_cache()
+    return rows
+
+
 def step_turns(layer, c0, r0, i0, steps, label, other):
     """Part 3's step: one on each checkout's kernels at the unperturbed
     inputs (rel_rnorm, finite gradients; also the warm-up), then 2 timed
@@ -264,6 +302,7 @@ def main() -> int:
     other = OtherLineBlock(args.other)
     streamed_bitwise(dev, args.seed, other)
     wide = wide_turns(dev, args.seed, other)
+    wide.update(level1_turns(dev, args.seed, other))
     long_window = long_window_turns(dev, args.seed, other)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"wide": wide, "long_window": long_window}), flush=True)
