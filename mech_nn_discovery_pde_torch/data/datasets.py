@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 
 from mech_nn_discovery_pde_torch.data import generate
+from mech_nn_discovery_pde_torch.utils.profiling import span
 
 
 def add_percent_noise(data: np.ndarray, percent: float, rng) -> np.ndarray:
@@ -161,7 +162,8 @@ class SineDataset:
 class PatchLoader:
     """Shuffling batch iterator over an indexable dataset; stacks item tuples
     into batched numpy arrays (drop_last semantics like the reference
-    DataLoaders)."""
+    DataLoaders).  Fetching and stacking a batch is the span `batch`
+    (utils/profiling)."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True, seed: int = 0,
                  drop_last: bool = True):
@@ -181,8 +183,11 @@ class PatchLoader:
             self.rng.shuffle(idx)
         nb = len(self)
         for b in range(nb):
-            items = [self.ds[int(i)] for i in idx[b * self.bs : (b + 1) * self.bs]]
-            if isinstance(items[0], tuple):
-                yield tuple(np.stack([np.asarray(it[j]) for it in items]) for j in range(len(items[0])))
-            else:
-                yield np.stack([np.asarray(it) for it in items])
+            with span("batch"):
+                items = [self.ds[int(i)] for i in idx[b * self.bs : (b + 1) * self.bs]]
+                if isinstance(items[0], tuple):
+                    batch = tuple(np.stack([np.asarray(it[j]) for it in items])
+                                  for j in range(len(items[0])))
+                else:
+                    batch = np.stack([np.asarray(it) for it in items])
+            yield batch

@@ -10,7 +10,7 @@ import torch
 from scipy.special import logit
 
 from mech_nn_discovery_pde_torch.utils.checkpoint import Checkpointer
-from mech_nn_discovery_pde_torch.utils.profiling import PhaseTimer
+from mech_nn_discovery_pde_torch.utils.profiling import PhaseTimer, span
 
 
 def fixed_steps(step_size: float, bs: int, dim: int, lo: float = None, hi: float = None,
@@ -28,16 +28,18 @@ def make_update(loss_fn: Callable, optimizer: torch.optim.Optimizer,
     """(*batch) -> (loss, aux): one gradient step of `loss_fn(*batch)` ->
     (loss, aux) on the optimizer's parameters, then one step of the LR
     schedule where there is one (step k updates at the schedule's value at
-    k, as optax evaluates a schedule at the count before the update)."""
+    k, as optax evaluates a schedule at the count before the update).  A
+    step is the span `step` (utils/profiling)."""
 
     def update(*batch):
-        optimizer.zero_grad(set_to_none=True)
-        loss, aux = loss_fn(*batch)
-        loss.backward()
-        optimizer.step()
-        if scheduler is not None:
-            scheduler.step()
-        return loss.detach(), aux
+        with span("step"):
+            optimizer.zero_grad(set_to_none=True)
+            loss, aux = loss_fn(*batch)
+            loss.backward()
+            optimizer.step()
+            if scheduler is not None:
+                scheduler.step()
+            return loss.detach(), aux
 
     return update
 

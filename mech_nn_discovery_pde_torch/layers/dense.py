@@ -34,6 +34,7 @@ from mech_nn_discovery_pde_torch.config import PDEConfig, default_config
 from mech_nn_discovery_pde_torch.ops.normal_solve import default_stats_fn, make_lstsq_solve
 from mech_nn_discovery_pde_torch.ops.system import PDESystem
 from mech_nn_discovery_pde_torch.solvers.cholesky import PRECISIONS, DenseNormalSolver
+from mech_nn_discovery_pde_torch.utils.profiling import span
 
 
 class PDEDenseLayer:
@@ -108,14 +109,15 @@ class PDEDenseLayer:
         return values, rhs_vec
 
     def __call__(self, coeffs, rhs, iv_rhs, steps_list):
-        values, rhs_vec = self._prepare(coeffs, rhs, iv_rhs, steps_list)
-        if self.config.return_solve_stats:
-            x, stats = self._solve(values, rhs_vec, None)
-        else:
-            x, stats = self._solve(values, rhs_vec, None), None
-        u = self.system.solution_reshaped(x)
-        u = u.reshape(self.bs, self.n_ind_dim, self.grid_size, self.n_orders)
-        return u[..., 0], u, stats
+        with span("layer.forward"):
+            values, rhs_vec = self._prepare(coeffs, rhs, iv_rhs, steps_list)
+            if self.config.return_solve_stats:
+                x, stats = self._solve(values, rhs_vec, None)
+            else:
+                x, stats = self._solve(values, rhs_vec, None), None
+            u = self.system.solution_reshaped(x)
+            u = u.reshape(self.bs, self.n_ind_dim, self.grid_size, self.n_orders)
+            return u[..., 0], u, stats
 
     @torch.no_grad()
     def backward_stats(self, coeffs, rhs, iv_rhs, steps_list, g):
@@ -125,7 +127,7 @@ class PDEDenseLayer:
         values, rhs_vec = self._prepare(coeffs, rhs, iv_rhs, steps_list)
         _, aux = self.inner.solve(values, rhs_vec)
         g = self._to(g).reshape(values.shape[0], -1)
-        dz = self.inner.resolve(values, g, aux, backward=True)
+        dz, _ = self.inner.resolve(values, g, aux, backward=True)
         rn = torch.linalg.vector_norm(g - self.system.normal_matvec_s(values, dz), dim=1)
         gn = torch.clamp(torch.linalg.vector_norm(g, dim=1), min=1e-30)
         return {"rnorm": rn, "rel_rnorm": rn / gn, "finite": torch.isfinite(dz).all(dim=1)}

@@ -27,6 +27,7 @@ from mech_nn_discovery_pde_torch.solvers.multigrid import (
     MultigridNormalSolver,
     MultigridSolver,
 )
+from mech_nn_discovery_pde_torch.utils.profiling import span
 
 
 class MultigridLayer:
@@ -105,14 +106,15 @@ class MultigridLayer:
         return values, rhs_vec, hier
 
     def __call__(self, coeffs, rhs, iv_rhs, steps_list):
-        values, rhs_vec, hier = self._prepare(coeffs, rhs, iv_rhs, steps_list)
-        if self.config.return_solve_stats:
-            x, stats = self._solve(values, rhs_vec, hier)
-        else:
-            x, stats = self._solve(values, rhs_vec, hier), None
-        u = self.system.solution_reshaped(x)
-        u = u.reshape(self.bs, self.n_ind_dim, self.grid_size, self.n_orders)
-        return u[..., 0], u, stats
+        with span("layer.forward"):
+            values, rhs_vec, hier = self._prepare(coeffs, rhs, iv_rhs, steps_list)
+            if self.config.return_solve_stats:
+                x, stats = self._solve(values, rhs_vec, hier)
+            else:
+                x, stats = self._solve(values, rhs_vec, hier), None
+            u = self.system.solution_reshaped(x)
+            u = u.reshape(self.bs, self.n_ind_dim, self.grid_size, self.n_orders)
+            return u[..., 0], u, stats
 
     @torch.no_grad()
     def backward_stats(self, coeffs, rhs, iv_rhs, steps_list, g):

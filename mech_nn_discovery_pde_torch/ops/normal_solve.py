@@ -13,7 +13,10 @@ functions by ordinary autograd.  The preconditioner data (`pdata`, e.g. the
 multigrid hierarchy) takes no gradient.
 
 Inner solvers provide `solve(values, rhs, pdata) -> (x, aux)`,
-`resolve(values, g, aux, backward) -> dz` and optionally `stats(aux)`.
+`resolve(values, g, aux, backward) -> (dz, stats)` (stats: a dict of the
+backward solve's own per-sample numbers, e.g. FGMRES 'iters'; may be empty)
+and optionally `stats(aux)`.  The backward records the span `layer.backward`
+(utils/profiling).
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from mech_nn_discovery_pde_torch.ops.system import PDESystem
+from mech_nn_discovery_pde_torch.utils.profiling import span
 
 
 class _LstsqSolve(torch.autograd.Function):
@@ -39,23 +43,25 @@ class _LstsqSolve(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        values, x, lam = ctx.saved_tensors
-        system = ctx.system
-        g = g.contiguous()
-        dz = ctx.inner.resolve(values, g, ctx.aux, backward=True)
-        if ctx.stats_fn is not None:
-            rn = torch.linalg.vector_norm(g - system.normal_matvec_s(values, dz), dim=1)
-            gn = torch.linalg.vector_norm(g, dim=1)
-            ctx.stats_fn("backward", {
-                "rnorm": rn,
-                "rel_rnorm": rn / torch.clamp(gn, min=1e-30),
-                "finite": torch.isfinite(dz).all(dim=1),
-            })
-        w = system.matvec_s(values, dz)  # A dz
-        rows = system.index("rows_all", values.device)
-        cols = system.index("cols_all", values.device)
-        values_bar = lam[:, rows] * dz[:, cols] - w[:, rows] * x[:, cols]
-        return values_bar.to(values.dtype), w.to(values.dtype), None, None, None, None
+        with span("layer.backward"):
+            values, x, lam = ctx.saved_tensors
+            system = ctx.system
+            g = g.contiguous()
+            dz, solve_stats = ctx.inner.resolve(values, g, ctx.aux, backward=True)
+            if ctx.stats_fn is not None:
+                rn = torch.linalg.vector_norm(g - system.normal_matvec_s(values, dz), dim=1)
+                gn = torch.linalg.vector_norm(g, dim=1)
+                ctx.stats_fn("backward", {
+                    "rnorm": rn,
+                    "rel_rnorm": rn / torch.clamp(gn, min=1e-30),
+                    "finite": torch.isfinite(dz).all(dim=1),
+                    **solve_stats,
+                })
+            w = system.matvec_s(values, dz)  # A dz
+            rows = system.index("rows_all", values.device)
+            cols = system.index("cols_all", values.device)
+            values_bar = lam[:, rows] * dz[:, cols] - w[:, rows] * x[:, cols]
+            return values_bar.to(values.dtype), w.to(values.dtype), None, None, None, None
 
 
 def make_lstsq_solve(system: PDESystem, inner, stats_fn: Optional[Callable] = None,
@@ -64,7 +70,9 @@ def make_lstsq_solve(system: PDESystem, inner, stats_fn: Optional[Callable] = No
     (x, stats) with return_stats.  The stats (forward solve; no gradient)
     are 'rnorm' / 'rel_rnorm' (normal-equation residual), 'finite' and the
     inner solver's entries (FGMRES 'iters', 'fgmres_rnorm').  `stats_fn`
-    (phase, stats) is called after every forward and backward solve."""
+    (phase, stats) is called after every forward and backward solve; the
+    backward's stats are the same norms of its own solve, with the inner
+    solver's resolve stats (FGMRES 'iters', 'fgmres_rnorm')."""
 
     def _fwd_stats(values, rhs, x, lam, aux):
         rn = torch.linalg.vector_norm(system.rmatvec_s(values, lam), dim=1)

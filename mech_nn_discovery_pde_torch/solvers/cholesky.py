@@ -26,7 +26,9 @@ the card:
 
 The PCG's dot products are per sample, (bs,).  Solvers follow the inner-solver
 protocol of ops/normal_solve.py: solve(values, rhs, pdata) -> (x, aux) and
-resolve(values, g, aux, backward) -> dz.
+resolve(values, g, aux, backward) -> (dz, {}).  Spans (utils/profiling):
+`dense.factor`, `dense.solve` and, in it, `dense.precond` around each
+application of the f32_ir preconditioner.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from typing import Any, Optional, Tuple
 import torch
 
 from mech_nn_discovery_pde_torch.ops.system import PDESystem
+from mech_nn_discovery_pde_torch.utils.profiling import span
 
 PRECISIONS = ("f64", "f32_ir", "f32")
 
@@ -78,57 +81,61 @@ class DenseNormalSolver:
         s the f32_ir equilibration scale (in the values' dtype), else None.
         AtA is scaled in place (bs n^2 entries: 1 GB in f32 at Burgers'
         bs 10, (32, 32))."""
-        if self.precision == "f64":
-            ata = self.system.assemble_normal(values)
-        else:
-            ata = self.system.assemble_normal(values.float())
-        diag = torch.diagonal(ata, dim1=-2, dim2=-1)
-        if self.ridge:
-            diag.add_(self.ridge)
-        if self.precision != "f32_ir":
-            return cholesky_nan(ata), None
-        # the equilibrated matrix has a unit diagonal, so the 1e-6 ridge gives
-        # an f32 positivity margin; the f64 PCG absorbs the perturbation
-        s = torch.rsqrt(torch.clamp(diag, min=torch.finfo(ata.dtype).tiny))
-        ata.mul_(s[:, :, None]).mul_(s[:, None, :])
-        diag.add_(1e-6)
-        return cholesky_nan(ata), s.to(values.dtype)
+        with span("dense.factor"):
+            if self.precision == "f64":
+                ata = self.system.assemble_normal(values)
+            else:
+                ata = self.system.assemble_normal(values.float())
+            diag = torch.diagonal(ata, dim1=-2, dim2=-1)
+            if self.ridge:
+                diag.add_(self.ridge)
+            if self.precision != "f32_ir":
+                return cholesky_nan(ata), None
+            # the equilibrated matrix has a unit diagonal, so the 1e-6 ridge
+            # gives an f32 positivity margin; the f64 PCG absorbs the
+            # perturbation
+            s = torch.rsqrt(torch.clamp(diag, min=torch.finfo(ata.dtype).tiny))
+            ata.mul_(s[:, :, None]).mul_(s[:, None, :])
+            diag.add_(1e-6)
+            return cholesky_nan(ata), s.to(values.dtype)
 
     def _solve_factored(self, values: torch.Tensor, rhs_n: torch.Tensor, factor) -> torch.Tensor:
         """Solve AtA x = rhs_n (normal space) given `factor`.  f32_ir: fixed-
         step PCG, preconditioned by the f32 factor, with the curvature guard
         (alpha = 0 where p^T AtA p <= tiny: on this ill-conditioned system
         p^T AtA p can round negative for near-null p)."""
-        L, s = factor
-        if self.precision != "f32_ir":
-            return cho_solve(L, rhs_n.to(L.dtype))
+        with span("dense.solve"):
+            L, s = factor
+            if self.precision != "f32_ir":
+                return cho_solve(L, rhs_n.to(L.dtype))
 
-        def mv(x):
-            return self.system.normal_matvec_s(values, x)
+            def mv(x):
+                return self.system.normal_matvec_s(values, x)
 
-        def pc(r):
-            return cho_solve(L, (r * s).float()).to(r.dtype) * s
+            def pc(r):
+                with span("dense.precond"):
+                    return cho_solve(L, (r * s).float()).to(r.dtype) * s
 
-        b = rhs_n
-        x = torch.zeros_like(b)
-        r = b
-        z = pc(r)
-        p = z
-        rz = _dot(r, z)
-        tiny = torch.finfo(b.dtype).tiny
-        zero = torch.zeros_like(rz)
-        for _ in range(self.ir_steps):
-            Ap = mv(p)
-            pAp = _dot(p, Ap)
-            alpha = torch.where(pAp > tiny, rz / torch.clamp(pAp, min=tiny), zero)
-            x = x + alpha[:, None] * p
-            r = r - alpha[:, None] * Ap
+            b = rhs_n
+            x = torch.zeros_like(b)
+            r = b
             z = pc(r)
-            rz_new = _dot(r, z)
-            beta = torch.where(rz > tiny, rz_new / torch.clamp(rz, min=tiny), zero)
-            p = z + beta[:, None] * p
-            rz = rz_new
-        return x
+            p = z
+            rz = _dot(r, z)
+            tiny = torch.finfo(b.dtype).tiny
+            zero = torch.zeros_like(rz)
+            for _ in range(self.ir_steps):
+                Ap = mv(p)
+                pAp = _dot(p, Ap)
+                alpha = torch.where(pAp > tiny, rz / torch.clamp(pAp, min=tiny), zero)
+                x = x + alpha[:, None] * p
+                r = r - alpha[:, None] * Ap
+                z = pc(r)
+                rz_new = _dot(r, z)
+                beta = torch.where(rz > tiny, rz_new / torch.clamp(rz, min=tiny), zero)
+                p = z + beta[:, None] * p
+                rz = rz_new
+            return x
 
     # ---- inner-solver protocol (ops/normal_solve.py) -------------------
 
@@ -137,5 +144,5 @@ class DenseNormalSolver:
         atb = self.system.rmatvec_s(values, rhs)
         return self._solve_factored(values, atb, factor), factor
 
-    def resolve(self, values: torch.Tensor, g: torch.Tensor, aux, backward: bool) -> torch.Tensor:
-        return self._solve_factored(values, g, aux)
+    def resolve(self, values: torch.Tensor, g: torch.Tensor, aux, backward: bool):
+        return self._solve_factored(values, g, aux), {}

@@ -32,7 +32,12 @@ FGMRES:
   window boundaries.
 
 The dot products and axpys are library calls (batched matmuls).  The window
-loop reads one flag from the device per window.
+loop reads one flag from the device per window.  While a profiler records,
+FGMRES records spans (utils/profiling): `fgmres.matvec` and
+`fgmres.precond` around each call of the operator and of the
+preconditioner, `fgmres.ortho` (CGS2, once an iteration), `fgmres.givens`,
+`fgmres.backsub` (with the update x + Z y) and `fgmres.check` (a window's
+true residual and the flag read).
 
 `reduce` (fgmres; `_dot`, `_norm`): where each rank holds a run of every
 vector (the sp-sharded solve), the per-sample partial sums of the dots and
@@ -48,6 +53,8 @@ from __future__ import annotations
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
+
+from mech_nn_discovery_pde_torch.utils.profiling import span
 
 # iterations between two reads of the "any sample still running" flag
 CHECK_EVERY = 8
@@ -74,6 +81,16 @@ def _norm(a, reduce: Optional[Callable] = None):
     if reduce is None:
         return torch.linalg.vector_norm(a, dim=1)
     return torch.sqrt(reduce((a * a).sum(dim=1)))
+
+
+def _in_span(name: str, fn: Callable) -> Callable:
+    """fn, each call recorded as the span `name`."""
+
+    def call(v):
+        with span(name):
+            return fn(v)
+
+    return call
 
 
 def _while_masked(cond: Callable, body: Callable, state: Dict[str, torch.Tensor],
@@ -115,8 +132,12 @@ def fgmres(
     thresh = torch.clamp(tol * _norm(b, reduce), min=atol)
     red = reduce or (lambda t: t)
 
+    mv = _in_span("fgmres.matvec", matvec)
+    pc = _in_span("fgmres.precond", precond)
+    pc_mv = _in_span("fgmres.precond", precond_matvec)
+
     def restart_cycle(x):
-        r = b - matvec(x)
+        r = b - mv(x)
         beta = _norm(r, reduce)
         V = b.new_zeros((bs, restart + 1, n))
         Z = b.new_zeros((bs, restart, n))
@@ -129,59 +150,66 @@ def fgmres(
         for j in range(restart):
             vj = V[:, j].contiguous()  # operators (kernels) take contiguous vectors
             if precond_matvec is not None:
-                z, u = precond_matvec(vj)
+                z, u = pc_mv(vj)
             else:
-                z = precond(vj)
-                u = matvec(z)
+                z = pc(vj)
+                u = mv(z)
             Z[:, j] = z
-            # CGS2: rows > j of V are zero, so the full product projects
-            # exactly onto the built basis
-            h1 = red(torch.bmm(V, u[:, :, None])[..., 0])
-            u = u - torch.bmm(V.transpose(1, 2), h1[:, :, None])[..., 0]
-            h2 = red(torch.bmm(V, u[:, :, None])[..., 0])
-            u = u - torch.bmm(V.transpose(1, 2), h2[:, :, None])[..., 0]
-            h = h1 + h2
-            hn = _norm(u, reduce)
-            V[:, j + 1] = _safe_div(u, hn[:, None])
-            # previous rotations on the new column h[0..j], then h[j+1] = hn
-            hcol = b.new_zeros((bs, restart + 1))
-            hcol[:, :restart] = h[:, :restart]
-            hcol[:, j + 1] = hn
-            for i in range(j):
-                hi, hi1 = hcol[:, i].clone(), hcol[:, i + 1].clone()
-                hcol[:, i] = cs[:, i] * hi + sn[:, i] * hi1
-                hcol[:, i + 1] = -sn[:, i] * hi + cs[:, i] * hi1
-            # new rotation annihilating hcol[j+1]
-            a_, b_ = hcol[:, j].clone(), hcol[:, j + 1].clone()
-            denom = torch.sqrt(a_ * a_ + b_ * b_)
-            c_ = torch.where(denom == 0, torch.ones_like(a_), _safe_div(a_, denom))
-            s_ = _safe_div(b_, denom)
-            cs[:, j] = c_
-            sn[:, j] = s_
-            hcol[:, j] = c_ * a_ + s_ * b_
-            hcol[:, j + 1] = 0.0
-            R[:, :, j] = hcol[:, :restart]
-            gj = g[:, j].clone()
-            g[:, j + 1] = -s_ * gj
-            g[:, j] = c_ * gj
-        # back-substitution R y = g[:restart]
-        y = b.new_zeros((bs, restart))
-        for i in range(restart - 1, -1, -1):
-            resid = g[:, i] - (R[:, i] * y).sum(dim=1)
-            y[:, i] = _safe_div(resid, R[:, i, i])
-        return x + torch.bmm(Z.transpose(1, 2), y[:, :, None])[..., 0]
+            with span("fgmres.ortho"):
+                # CGS2: rows > j of V are zero, so the full product projects
+                # exactly onto the built basis
+                h1 = red(torch.bmm(V, u[:, :, None])[..., 0])
+                u = u - torch.bmm(V.transpose(1, 2), h1[:, :, None])[..., 0]
+                h2 = red(torch.bmm(V, u[:, :, None])[..., 0])
+                u = u - torch.bmm(V.transpose(1, 2), h2[:, :, None])[..., 0]
+                h = h1 + h2
+                hn = _norm(u, reduce)
+                V[:, j + 1] = _safe_div(u, hn[:, None])
+            with span("fgmres.givens"):
+                # previous rotations on the new column h[0..j], then h[j+1] = hn
+                hcol = b.new_zeros((bs, restart + 1))
+                hcol[:, :restart] = h[:, :restart]
+                hcol[:, j + 1] = hn
+                for i in range(j):
+                    hi, hi1 = hcol[:, i].clone(), hcol[:, i + 1].clone()
+                    hcol[:, i] = cs[:, i] * hi + sn[:, i] * hi1
+                    hcol[:, i + 1] = -sn[:, i] * hi + cs[:, i] * hi1
+                # new rotation annihilating hcol[j+1]
+                a_, b_ = hcol[:, j].clone(), hcol[:, j + 1].clone()
+                denom = torch.sqrt(a_ * a_ + b_ * b_)
+                c_ = torch.where(denom == 0, torch.ones_like(a_), _safe_div(a_, denom))
+                s_ = _safe_div(b_, denom)
+                cs[:, j] = c_
+                sn[:, j] = s_
+                hcol[:, j] = c_ * a_ + s_ * b_
+                hcol[:, j + 1] = 0.0
+                R[:, :, j] = hcol[:, :restart]
+                gj = g[:, j].clone()
+                g[:, j + 1] = -s_ * gj
+                g[:, j] = c_ * gj
+        with span("fgmres.backsub"):
+            # back-substitution R y = g[:restart], then x + Z y
+            y = b.new_zeros((bs, restart))
+            for i in range(restart - 1, -1, -1):
+                resid = g[:, i] - (R[:, i] * y).sum(dim=1)
+                y[:, i] = _safe_div(resid, R[:, i, i])
+            return x + torch.bmm(Z.transpose(1, 2), y[:, :, None])[..., 0]
 
-    rn = _norm(b - matvec(x), reduce)
-    it = torch.zeros(bs, dtype=torch.int64, device=b.device)
-    while True:
+    # a window's true residual, its samples' freeze and the flag read
+    with span("fgmres.check"):
+        rn = _norm(b - mv(x), reduce)
+        it = torch.zeros(bs, dtype=torch.int64, device=b.device)
         active = (rn > thresh) & (it < maxiter)
-        if not bool(active.any()):
-            break
+        running = bool(active.any())
+    while running:
         x_new = restart_cycle(x)
-        rn_new = _norm(b - matvec(x_new), reduce)
-        x = torch.where(active[:, None], x_new, x)
-        rn = torch.where(active, rn_new, rn)
-        it = torch.where(active, it + restart, it)
+        with span("fgmres.check"):
+            rn_new = _norm(b - mv(x_new), reduce)
+            x = torch.where(active[:, None], x_new, x)
+            rn = torch.where(active, rn_new, rn)
+            it = torch.where(active, it + restart, it)
+            active = (rn > thresh) & (it < maxiter)
+            running = bool(active.any())
     return KrylovResult(x, it, rn)
 
 

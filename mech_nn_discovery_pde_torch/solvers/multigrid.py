@@ -81,6 +81,7 @@ from mech_nn_discovery_pde_torch.parallel.sharded_normal import (
     shard_layout,
 )
 from mech_nn_discovery_pde_torch.solvers import krylov
+from mech_nn_discovery_pde_torch.utils.profiling import count, recording, span
 
 
 def _resolve_solve_dtype(msd: str, dtype: torch.dtype) -> torch.dtype:
@@ -330,15 +331,37 @@ class MultigridSolver:
         factor W = L^-T) and, on the stencil operator, the assembled stencil
         fields, both in their storage dtypes (the factored operator keeps the
         values' structured split); lmax, estimated on the stored operators,
-        and the Chebyshev schedules of the pre/post passes."""
-        sysk = self.systems[k]
-        v32 = values.to(self.pdtype)
-        if self._point:
-            B = sysk.assemble_point_blocks(v32)  # (bs, N, m, m)
-            if self._sharded(k):
-                B = B[:, self._shard.points]  # this rank's points
-        else:
-            B = sysk.assemble_line_blocks(v32)  # (bs, S, bw, bw)
+        and the Chebyshev schedules of the pre/post passes.  Spans
+        `hierarchy.level` (attr level) and, in it, `hierarchy.block_factor`."""
+        with span("hierarchy.level", level=k):
+            sysk = self.systems[k]
+            v32 = values.to(self.pdtype)
+            if self._point:
+                B = sysk.assemble_point_blocks(v32)  # (bs, N, m, m)
+                if self._sharded(k):
+                    B = B[:, self._shard.points]  # this rank's points
+            else:
+                B = sysk.assemble_line_blocks(v32)  # (bs, S, bw, bw)
+            with span("hierarchy.block_factor"):
+                binv = self._block_inverse(B)
+            del B
+            # the rounded (or factored) operators must be stored before lmax is
+            # estimated: Chebyshev amplifies any mode above an underestimate
+            lvl = {"values": v32, "binv": binv.to(self.binv_dtype).contiguous()}
+            if self._factored_op:
+                lvl["sv"] = sysk.split_values(v32)
+            else:
+                coef = build_normal_coef(sysk.spec, self.descs[k], sysk.split_values(v32))
+                coef = coef.to(self.vdtype)
+                lvl["coef"] = self._local_fields(coef) if self._sharded(k) else coef
+            lvl["lmax"] = self._estimate_lmax(k, lvl)
+            steps = max(self.config.mg_smoother_steps_pre, self.config.mg_smoother_steps_post)
+            lvl["sched"] = chebyshev_schedule(lvl["lmax"], self.config.mg_chebyshev_ratio, steps)
+            return lvl
+
+    def _block_inverse(self, B: torch.Tensor) -> torch.Tensor:
+        """B^-1 of every block (a 1e-6 max-diag ridge, Cholesky, then the
+        explicit inverse), or the factor W = L^-T (B^-1 = W W^T)."""
         nb = B.shape[-1]
         eye = torch.eye(nb, dtype=B.dtype, device=B.device)
         d = torch.diagonal(B, dim1=-2, dim2=-1)
@@ -348,23 +371,8 @@ class MultigridSolver:
         if self._factored_binv:
             # B^-1 = L^-T L^-1 = W W^T with W = L^-T
             linv = torch.linalg.solve_triangular(L, eye.expand_as(B), upper=False)
-            binv = linv.transpose(-1, -2).triu()
-        else:
-            binv = torch.cholesky_solve(eye.expand_as(B), L)
-        del B, L
-        # the rounded (or factored) operators must be stored before lmax is
-        # estimated: Chebyshev amplifies any mode above an underestimate
-        lvl = {"values": v32, "binv": binv.to(self.binv_dtype).contiguous()}
-        if self._factored_op:
-            lvl["sv"] = sysk.split_values(v32)
-        else:
-            coef = build_normal_coef(sysk.spec, self.descs[k], sysk.split_values(v32))
-            coef = coef.to(self.vdtype)
-            lvl["coef"] = self._local_fields(coef) if self._sharded(k) else coef
-        lvl["lmax"] = self._estimate_lmax(k, lvl)
-        steps = max(self.config.mg_smoother_steps_pre, self.config.mg_smoother_steps_post)
-        lvl["sched"] = chebyshev_schedule(lvl["lmax"], self.config.mg_chebyshev_ratio, steps)
-        return lvl
+            return linv.transpose(-1, -2).triu()
+        return torch.cholesky_solve(eye.expand_as(B), L)
 
     def _normal_apply(self, k: int, lvl, v: torch.Tensor, **epilogue) -> torch.Tensor:
         """(AtA) v on level k with K1's epilogue (`stencil_apply`): kernel K1
@@ -466,28 +474,35 @@ class MultigridSolver:
     @torch.no_grad()
     def build_hierarchy(self, coeffs, rhs, iv_rhs, steps_list, fine_values, ridge: float = 0.0):
         """All preconditioner data, with no gradient: per-level smoother data
-        and the coarsest-level explicit inverse."""
-        coeffs, rhs = coeffs.detach(), rhs.detach()
-        steps_list = [s.detach() for s in steps_list]
-        iv_rhs = iv_rhs.detach() if iv_rhs is not None else None
+        and the coarsest-level explicit inverse.  Spans `hierarchy` and, in
+        it, `hierarchy.coarse_factor`."""
+        with span("hierarchy"):
+            coeffs, rhs = coeffs.detach(), rhs.detach()
+            steps_list = [s.detach() for s in steps_list]
+            iv_rhs = iv_rhs.detach() if iv_rhs is not None else None
 
-        levels = [self._level_precond_data(0, fine_values.detach())]
-        for k in range(1, self.n_grid):
-            coeffs = self.downsample_coeffs(k - 1, coeffs)
-            rhs = self.downsample_rhs(k - 1, rhs)
-            steps_list = self.downsample_steps(k - 1, steps_list)
-            iv_rhs = self.downsample_iv(k - 1, iv_rhs)
-            sysk = self.systems[k]
-            values_k = sysk.fill_values(coeffs, steps_list, dtype=self.pdtype)
-            values_k = self._rescale_coarse_values(k, levels[k - 1]["values"], values_k)
-            if k < self.n_grid - 1:
-                levels.append(self._level_precond_data(k, values_k))
-            else:  # the coarsest level is solved directly, never smoothed
-                levels.append({"values": values_k})
+            levels = [self._level_precond_data(0, fine_values.detach())]
+            for k in range(1, self.n_grid):
+                coeffs = self.downsample_coeffs(k - 1, coeffs)
+                rhs = self.downsample_rhs(k - 1, rhs)
+                steps_list = self.downsample_steps(k - 1, steps_list)
+                iv_rhs = self.downsample_iv(k - 1, iv_rhs)
+                sysk = self.systems[k]
+                values_k = sysk.fill_values(coeffs, steps_list, dtype=self.pdtype)
+                values_k = self._rescale_coarse_values(k, levels[k - 1]["values"], values_k)
+                if k < self.n_grid - 1:
+                    levels.append(self._level_precond_data(k, values_k))
+                else:  # the coarsest level is solved directly, never smoothed
+                    levels.append({"values": values_k})
+            with span("hierarchy.coarse_factor"):
+                coarse_inv = self._coarse_inverse(levels[-1]["values"], ridge)
+            return {"levels": levels, "coarse_inv": coarse_inv}
 
-        # coarsest dense factorization (f32, equilibrated)
+    def _coarse_inverse(self, values: torch.Tensor, ridge: float) -> torch.Tensor:
+        """The coarsest level's dense factorization (f32, equilibrated):
+        assembled AtA, explicit inverse in its storage rounding."""
         sysc = self.systems[-1]
-        ata = sysc.assemble_normal(levels[-1]["values"])
+        ata = sysc.assemble_normal(values)
         n = sysc.num_vars
         eye = torch.eye(n, dtype=ata.dtype, device=ata.device)
         if ridge:
@@ -510,8 +525,7 @@ class MultigridSolver:
         coarse_inv = inv * s[:, :, None] * s[:, None, :]
         # 'bf16' rounds the stored inverse; it is kept as f32 values for the
         # coarse product, as the JAX package's einsum promotes it
-        coarse_inv = coarse_inv.to(self.vdtype).to(self.pdtype)
-        return {"levels": levels, "coarse_inv": coarse_inv}
+        return coarse_inv.to(self.vdtype).to(self.pdtype)
 
     # ------------------------------------------------------------------
     # smoother and transfers (batched, f32)
@@ -563,23 +577,31 @@ class MultigridSolver:
 
     def v_cycle(self, hier, b, k: int = 0, back: bool = False,
                 return_residual: bool = False):
+        """One V-cycle from level k down; spans `vcycle.smooth_pre`,
+        `.restrict`, `.prolong`, `.smooth_post` (attr level k) and
+        `vcycle.coarse` (attr level: the coarsest)."""
         cfg = self.config
         lvl = hier["levels"][k]
-        if cfg.mg_smoother_residual:
-            x, r = self._smooth(k, lvl, b, None, cfg.mg_smoother_steps_pre, back,
-                                x0_zero=True, want_residual=True)
-        else:
-            x = self._smooth(k, lvl, b, None, cfg.mg_smoother_steps_pre, back, x0_zero=True)
-            r = self._normal_apply(k, lvl, x, rin=b)
-        rH = self._restrict_vec(k, r)
+        with span("vcycle.smooth_pre", level=k):
+            if cfg.mg_smoother_residual:
+                x, r = self._smooth(k, lvl, b, None, cfg.mg_smoother_steps_pre, back,
+                                    x0_zero=True, want_residual=True)
+            else:
+                x = self._smooth(k, lvl, b, None, cfg.mg_smoother_steps_pre, back, x0_zero=True)
+                r = self._normal_apply(k, lvl, x, rin=b)
+        with span("vcycle.restrict", level=k):
+            rH = self._restrict_vec(k, r)
         if k == self.n_grid - 2:
-            deltaH = torch.bmm(hier["coarse_inv"], rH[:, :, None])[..., 0]
+            with span("vcycle.coarse", level=k + 1):
+                deltaH = torch.bmm(hier["coarse_inv"], rH[:, :, None])[..., 0]
         else:
             deltaH = self.v_cycle(hier, rH, k + 1, back)
-        # raw (unit-step) coarse correction
-        x = x + self._prolong_vec(k, deltaH)
-        return self._smooth(k, lvl, b, x, cfg.mg_smoother_steps_post, back,
-                            want_residual=return_residual)
+        with span("vcycle.prolong", level=k):
+            # raw (unit-step) coarse correction
+            x = x + self._prolong_vec(k, deltaH)
+        with span("vcycle.smooth_post", level=k):
+            return self._smooth(k, lvl, b, x, cfg.mg_smoother_steps_post, back,
+                                want_residual=return_residual)
 
     def precondition(self, hier, r: torch.Tensor, back: bool = False) -> torch.Tensor:
         """mg_steps V-cycles from a zero guess, in f32; cast at the boundary."""
@@ -638,7 +660,7 @@ class MultigridSolver:
         already in variable space).  Returns (x, iters, rnorm).  Sharded:
         each rank solves on its run of the right-hand side, the dots and
         norms summed over the ranks, and gathers x; every rank returns the
-        same global x, iters and rnorm."""
+        same global x, iters and rnorm.  Span `fgmres` (attr back)."""
         cfg = self.config
         sys0 = self.systems[0]
         restart = cfg.mg_fgmres_restarts_backward if back else cfg.mg_fgmres_restarts_forward
@@ -651,17 +673,19 @@ class MultigridSolver:
         pmv = None
         if cfg.mg_fused_matvec:
             pmv = lambda r: self.precondition_with_Az(hier, r, back=back)
-        res = krylov.fgmres(
-            self._fine_op(hier, fine_values),
-            atb.to(self.solve_dtype),
-            precond=lambda r: self.precondition(hier, r, back=back),
-            restart=restart,
-            maxiter=maxiter,
-            atol=cfg.mg_fgmres_tol,
-            tol=cfg.mg_fgmres_tol,
-            precond_matvec=pmv,
-            reduce=reduce,
-        )
+        op = self._fine_op(hier, fine_values)
+        with span("fgmres", back=back):
+            res = krylov.fgmres(
+                op,
+                atb.to(self.solve_dtype),
+                precond=lambda r: self.precondition(hier, r, back=back),
+                restart=restart,
+                maxiter=maxiter,
+                atol=cfg.mg_fgmres_tol,
+                tol=cfg.mg_fgmres_tol,
+                precond_matvec=pmv,
+                reduce=reduce,
+            )
         x = res.x
         if self._shard is not None:
             x = all_gather_cat(x, self._sp_group, dim=1)
@@ -670,18 +694,31 @@ class MultigridSolver:
 
 class MultigridNormalSolver:
     """Inner-solver adapter for ops/normal_solve.py: forward/backward
-    FGMRES+MG with separate budgets, hierarchy reused in backward."""
+    FGMRES+MG with separate budgets, hierarchy reused in backward.  While a
+    profiler records, each solve keeps the counters `fgmres.iters.<side>`
+    and `fgmres.rel_resid.<side>` (FGMRES's final true residual over the
+    norm of its right-hand side), per sample, side `fwd` or `bwd`."""
 
     def __init__(self, mg: MultigridSolver):
         self.mg = mg
 
     def solve(self, values, rhs, pdata):
         x, iters, rnorm = self.mg.solve_normal(values, rhs, pdata, back=False)
+        if recording():
+            _count_solve("fwd", iters, rnorm, self.mg.systems[0].rmatvec_s(values, rhs))
         return x, (pdata, iters, rnorm)
 
     def stats(self, aux):
         return {"iters": aux[1], "fgmres_rnorm": aux[2]}
 
     def resolve(self, values, g, aux, backward: bool):
-        dz, _, _ = self.mg.solve_normal(values, g, aux[0], back=True)
-        return dz
+        dz, iters, rnorm = self.mg.solve_normal(values, g, aux[0], back=True)
+        if recording():
+            _count_solve("bwd", iters, rnorm, g)
+        return dz, {"iters": iters, "fgmres_rnorm": rnorm}
+
+
+def _count_solve(side: str, iters, rnorm, rhs) -> None:
+    bnorm = torch.clamp(torch.linalg.vector_norm(rhs, dim=1), min=1e-30)
+    count(f"fgmres.iters.{side}", iters)
+    count(f"fgmres.rel_resid.{side}", rnorm / bnorm)
