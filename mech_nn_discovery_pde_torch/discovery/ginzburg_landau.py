@@ -6,10 +6,13 @@ Learn one equation of the coupled complex GL system (u = Re A, v = Im A) as
 
 over bases {1, u, u^2, v, v^2, uv} for p0, {1, u, u^2} for p1/p2 and
 {v, v^2, v^3} for p3, from (8, 32, 32) t-x-y patches through the
-MultigridLayer (n_grid 3, downsample_first=False).  Five boundary faces
-provide Dirichlet data.  With `nn_transform`, two 2D ResNets (width 128,
-depth 12) denoise u and v frame by frame, in float32, before the bases and
-the boundary data are built.
+MultigridLayer (n_grid 3; `downsample_first` False, the published setting,
+halves x and y only from level to level, True halves t too, which a long
+time window such as (50, 32, 32) needs: its coarsest level then holds
+(12, 8, 8) points, not (50, 8, 8)).  Five boundary faces provide Dirichlet
+data.  With `nn_transform`, two 2D ResNets (width 128, depth 12) denoise u
+and v frame by frame, in float32, before the bases and the boundary data
+are built.
 
 Port of the JAX package's discovery/ginzburg_landau.py: the training loop
 writes a run directory (logs/gl/<n>) with a log, source provenance and
@@ -18,6 +21,7 @@ solve's convergence every few epochs (`backward_probe_every`).
 
 Run:  python -m mech_nn_discovery_pde_torch.discovery.ginzburg_landau
       [--epochs N] [--steps-per-epoch N] [--resume-from RUN_DIR] [--device cuda]
+      [--solver-dim T X Y] [--batch-size N] [--downsample-first]
 """
 
 from __future__ import annotations
@@ -46,6 +50,8 @@ from mech_nn_discovery_pde_torch.utils import rundir
 class GLConfig:
     solver_dim: tuple = (8, 32, 32)
     n_grid: int = 3
+    # coarsen the time axis too (see the module docstring)
+    downsample_first: bool = False
     batch_size: int = 32
     lr: float = 1e-5
     epochs: int = 500
@@ -106,7 +112,8 @@ class GLDiscovery(nn.Module):
         self.layer = MultigridLayer(
             bs=cfg.batch_size, coord_dims=dims, order=2, n_ind_dim=1, n_iv=1,
             init_index_mi_list=self.IV_LIST, solver_dbl=True,
-            n_grid=cfg.n_grid, downsample_first=False, config=cfg.pde, device=device,
+            n_grid=cfg.n_grid, downsample_first=cfg.downsample_first, config=cfg.pde,
+            device=device,
         )
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
@@ -292,6 +299,12 @@ if __name__ == "__main__":
     ap.add_argument("--steps-per-epoch", type=int, default=None)
     ap.add_argument("--resume-from", default=None)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--solver-dim", type=int, nargs=3, default=GLConfig.solver_dim)
+    ap.add_argument("--batch-size", type=int, default=GLConfig.batch_size)
+    ap.add_argument("--downsample-first", action="store_true",
+                    help="coarsen the time axis too (a long time window)")
     a = ap.parse_args()
     train(GLConfig(epochs=a.epochs, steps_per_epoch=a.steps_per_epoch,
-                   resume_from=a.resume_from), device=a.device)
+                   resume_from=a.resume_from, solver_dim=tuple(a.solver_dim),
+                   batch_size=a.batch_size, downsample_first=a.downsample_first),
+          device=a.device)

@@ -720,6 +720,20 @@ def point_block_geometry(bs: int, N: int, bw: int, entry_bytes: int, n_sm: int,
         bulk=tile_bytes % 16 == 0 and 4 * tile * bw % 16 == 0)
 
 
+def block_apply_route(blocks: torch.Tensor, nt: int, factored: bool) -> str:
+    """The route a block apply of `blocks` (bs, S, bw, bw) takes: "plain"
+    off CUDA (the plain versions), "point" on the point-block kernels
+    (`point_path`), else the line kernel that `line_block_geometry` picks
+    ("streamed", "panels", "cluster" or "two_sweep"; `line_block_route`)."""
+    if not blocks.is_cuda:
+        return "plain"
+    bs, S, bw, _ = blocks.shape
+    if point_path(nt, bw):
+        return "point"
+    return line_block_geometry(bs, S, bw, blocks.element_size(), _cuda.sm_count(blocks.device),
+                               factored).route
+
+
 def _launch_line_block(kernels, blocks, r, nt, d, c1, c2):
     """Check the operands of a block apply and launch its kernel: the
     point-block one where `point_path(nt, bw)`, else the line one."""

@@ -61,6 +61,7 @@ import torch
 from mech_nn_discovery_pde_torch.config import PDEConfig, default_config
 from mech_nn_discovery_pde_torch.ops.fused_smoother import (
     block_apply,
+    block_apply_route,
     chebyshev_schedule,
     chebyshev_smooth_op,
     factored_block_apply,
@@ -389,9 +390,22 @@ class MultigridSolver:
 
     def _block_apply(self, k: int, lvl, r: torch.Tensor, **epilogue) -> torch.Tensor:
         """B^-1 r with the block inverses (kernel K2 on CUDA), or W (W^T r)
-        with their factors (kernel K3), with the kernels' epilogue."""
+        with their factors (kernel K3), with the kernels' epilogue: every
+        smoother step's and the lmax iteration's.  While a profiler records,
+        each call counts one under `block_apply.launches` (attrs as
+        `_block_attrs`)."""
+        if recording():
+            count("block_apply.launches", 1, **self._block_attrs(k, lvl))
         apply = factored_block_apply if self._factored_binv else block_apply
         return apply(lvl["binv"], r, self._block_nt(k), **epilogue)
+
+    def _block_attrs(self, k: int, lvl) -> Dict[str, Any]:
+        """Level k's block applies described: `level`, `route` (the kernel
+        its blocks take, ops/fused_smoother.block_apply_route) and `storage`
+        (mg_precond_dtype)."""
+        return {"level": k,
+                "route": block_apply_route(lvl["binv"], self._block_nt(k), self._factored_binv),
+                "storage": self.config.mg_precond_dtype}
 
     def _estimate_lmax(self, k: int, lvl, iters: int = 20) -> torch.Tensor:
         """Power iteration on B^-1 AtA (batched), biased high by the
@@ -536,9 +550,16 @@ class MultigridSolver:
         """One smoothing pass (ops/fused_smoother.py): Chebyshev, whose
         want_residual returns r = b - A x from the recurrence; or weighted
         block Jacobi (weight jacobi_w on the backward solve, jacobi_w_forward
-        on the forward), which recomputes it."""
+        on the forward), which recomputes it.  Each block apply is the span
+        `vcycle.block_apply` (attrs as `_block_attrs`)."""
         apply = lambda v, **ep: self._normal_apply(k, lvl, v, **ep)
-        block = lambda r, **ep: self._block_apply(k, lvl, r, **ep)
+
+        def block(r, **ep):
+            if not recording():
+                return self._block_apply(k, lvl, r, **ep)
+            with span("vcycle.block_apply", **self._block_attrs(k, lvl)):
+                return self._block_apply(k, lvl, r, **ep)
+
         cfg = self.config
         if cfg.mg_smoother == "jacobi":
             w = cfg.jacobi_w if back else cfg.jacobi_w_forward

@@ -2,11 +2,12 @@
 timing (port of the JAX package's utils/profiling.py).
 
 `span(name, **attrs)` records `Span(name, parent, step, t0, t1, attrs)` of
-the block it wraps, and `count(name, tensor)` keeps a detached tensor (no
-synchronization), both only while a torch profiler session is recording
-(`torch.profiler.profile`: a traced benchmark run or an operator's own
-session).  Otherwise `span` returns one shared no-op context after a single
-flag read and `count` keeps nothing; there is no other switch.
+the block it wraps, and `count(name, value, **attrs)` keeps a number or a
+detached tensor (no synchronization), both only while a torch profiler
+session is recording (`torch.profiler.profile`: a traced benchmark run or
+an operator's own session).  Otherwise `span` returns one shared no-op
+context after a single flag read and `count` keeps nothing; there is no
+other switch.
 
 Span times are host times (`time.perf_counter_ns`); the parent is the span
 open around the block.  There is one stack for all threads: the autograd
@@ -75,7 +76,7 @@ class _Log:
 
 
 _LOG = _Log()
-_COUNTS: Dict[str, List[Tuple[int, torch.Tensor]]] = {}
+_COUNTS: Dict[str, List[tuple]] = {}
 _NOOP = contextlib.nullcontext()
 
 
@@ -130,11 +131,16 @@ def span(name: str, **attrs):
     return _Span(name, attrs)
 
 
-def count(name: str, tensor: torch.Tensor) -> None:
-    """Keep `tensor` (detached, not copied, no synchronization) under `name`
-    with the current step while a profiler session records."""
+def count(name: str, value, **attrs) -> None:
+    """Keep `value` (a tensor: detached, not copied, no synchronization; or
+    a number) under `name` with the current step while a profiler session
+    records: as (step, value), or as (step, value, attrs) where `attrs` are
+    given (small, e.g. level=k; a counter's every site gives them or none)."""
     if _profiler_enabled():
-        _COUNTS.setdefault(name, []).append((_LOG.step, tensor.detach()))
+        if isinstance(value, torch.Tensor):
+            value = value.detach()
+        _COUNTS.setdefault(name, []).append((_LOG.step, value, attrs) if attrs
+                                            else (_LOG.step, value))
 
 
 def spans(anchors: Sequence[Tuple[float, float]] = ()) -> Tuple[List[Span], Optional[float]]:
@@ -168,9 +174,9 @@ def spans(anchors: Sequence[Tuple[float, float]] = ()) -> Tuple[List[Span], Opti
     return out, spread
 
 
-def counters() -> Dict[str, List[Tuple[int, torch.Tensor]]]:
-    """The counters kept since the last call, by name: (step, tensor) in
-    the order kept; and clears them."""
+def counters() -> Dict[str, List[tuple]]:
+    """The counters kept since the last call, by name: (step, value) or
+    (step, value, attrs) in the order kept; and clears them."""
     global _COUNTS
     out, _COUNTS = _COUNTS, {}
     return out

@@ -232,3 +232,29 @@ def test_loader_batches_are_spans():
     spans, _ = profiling.spans()
     assert len(batches) == 3 and [s.name for s in spans] == ["batch"] * 3
     assert all(s.parent == -1 and s.t0 < s.t1 for s in spans)
+
+
+def test_block_apply_spans_and_launches(mg):
+    """One `vcycle.block_apply` span per block apply of a smoothing pass,
+    inside it (Chebyshev 2 + 2: two a pass), and one `block_apply.launches`
+    count per block apply: the spans' and the lmax power iteration's 21 a
+    smoothed level per hierarchy, one hierarchy a step; each with the
+    level, the route ('plain' on the CPU) and the storage.  Untraced, none
+    (test_untraced_steps_record_nothing_and_match_traced)."""
+    spans, counters = mg["traced"][1][0], mg["traced"][2]
+    attrs = {"level": 0, "route": "plain", "storage": "f32"}  # n_grid 2: level 0 smoothed
+    blocks = [s for s in spans if s.name == "vcycle.block_apply"]
+    assert blocks and all(s.attrs == attrs for s in blocks)
+    n_pass = 0
+    for i, s in enumerate(spans):
+        if s.name in ("vcycle.smooth_pre", "vcycle.smooth_post"):
+            n_pass += 1
+            kids = _children(spans, i)
+            assert [c.name for c in kids] == ["vcycle.block_apply"] * 2
+            assert all(c.attrs["level"] == s.attrs["level"] for c in kids)
+    assert len(blocks) == 2 * n_pass
+    launches = counters["block_apply.launches"]
+    assert all(n == 1 and a == attrs for _, n, a in launches)
+    for step in (0, 1):
+        n_spans = sum(s.step == step for s in blocks)
+        assert sum(st == step for st, _, _ in launches) == n_spans + 21
