@@ -39,8 +39,8 @@ plain PyTorch version:
      its plain version and a float64 CSR sparse product at both levels;
      then (2d) K2 (f32 and bf16) and K3 at time-line blocks wider than one
      CTA's shared memory holds, on the row-tiled kernels their width gives
-     (K2's panel kernel, K3's cluster kernel, to bw 916, or its two-sweep
-     one), against their plain versions with and without the epilogue
+     (K2's panel kernel, K3's cluster kernel on its packed W, to bw 916,
+     or its two-sweep one), against their plain versions with and without the epilogue
      (1e-5): bw 280 and 350 timed alone, back to back and on the device
      beside their bounds (K3: W's upper triangle read once) and one bmm
      (two for K3) on an f32 copy of the blocks, also on 4 x as many lines,
@@ -244,9 +244,16 @@ def block_bound(blocks, n_vec: int, factored: bool):
     entries of r read and of the result written: K2 reads every entry of
     B^-1 once, 2 operations each; K3 needs W's upper triangle only (its
     strict lower one is zero by contract), bw (bw + 1) / 2 entries a block,
-    read once and used twice (W^T r, then W u), 4 operations each."""
-    bw = blocks.shape[-1]
-    entries = blocks.numel() // (bw * bw) * (bw * (bw + 1) // 2 if factored else bw * bw)
+    read once and used twice (W^T r, then W u), 4 operations each, also
+    where W is packed (`pack_upper`, which pads each row to 16 bytes)."""
+    if factored and blocks.ndim == 3:
+        from mech_nn_discovery_pde_torch.ops import fused_smoother as fs
+
+        bw = fs.packed_width(blocks.shape[-1])
+        entries = blocks.numel() // blocks.shape[-1] * (bw * (bw + 1) // 2)
+    else:
+        bw = blocks.shape[-1]
+        entries = blocks.numel() // (bw * bw) * (bw * (bw + 1) // 2 if factored else bw * bw)
     return bound(entries * blocks.element_size() + 4 * 2 * n_vec,
                  (4 if factored else 2) * entries)
 
@@ -678,7 +685,8 @@ def phase_odd_shape(dev, seed, bs=2):
         c1 = torch.rand((bs,), generator=g, device=dev)
         c2 = torch.rand((bs,), generator=g, device=dev)
         B = torch.randn((bs, S, bw, bw), generator=g, device=dev)
-        W = torch.randn((bs, S, bw, bw), generator=g, device=dev).triu().to(torch.bfloat16)
+        W = k3_operand(torch.randn((bs, S, bw, bw), generator=g, device=dev).triu()
+                       .to(torch.bfloat16), nt)
         cases = (("K2 f32", fs.block_apply, fs.block_apply_plain, B, False),
                  ("K2 bf16", fs.block_apply, fs.block_apply_plain, B.to(torch.bfloat16), False),
                  ("K3", fs.factored_block_apply, fs.factored_block_apply_plain, W, True))
@@ -697,7 +705,7 @@ def phase_odd_shape(dev, seed, bs=2):
                     ", whole-block copies" if flags & 1 else ", shifted copies (panel_copy)")
             log(f"  {label}: {geo.route} ({kernels.line_counted[geo.route]}), {geo.ctas} CTAs, "
                 f"{geo.stages} stages, {geo.panel_rows} rows, {smem} B shared, walk {geo.walk}"
-                f"{copy}")
+                f"{copy}{', W packed' if blocks.ndim == 3 else ''}")
             _cuda.LAUNCHES.clear()
             check_line_kernel(label, kern, plain, blocks, x, b, c1, c2, nt)
             torch.cuda.synchronize()
@@ -918,8 +926,8 @@ BLOCK_KERNEL = {"f32": ("k2_line_block_apply",),
 # the long window's, by storage mode and level: the fine level's blocks (bw
 # 350) take the row-tiled kernels; level 1's (bw 175) the panel kernel in
 # f32 (streamed only to bw 137), the streamed kernel in bf16 (one CTA of 3
-# stages an SM) and the cluster kernel for K3 (clusters of 2 CTAs of 2
-# stages; streamed only to bw 168): ops/fused_smoother.line_block_geometry
+# stages an SM) and the cluster kernel for K3 on its packed W (clusters of
+# 2 CTAs of 2 stages; streamed only to bw 168): ops/fused_smoother.line_block_geometry
 LONG_BLOCK_KERNEL = {"f32": {0: ("k2_line_block_apply_panels",),
                              1: ("k2_line_block_apply_panels",)},
                      "bf16_factored": {0: ("k3_factored_line_block_apply_cluster",),
@@ -2039,7 +2047,11 @@ def level_kernel(layer, c0, r0, i0, steps, mode, seed, dev, level=0):
     blocks = hier["levels"][level]["binv"]
     del hier
     nt = layer.mg_solver.dim_list[level][0]
-    bs, S, bw, _ = blocks.shape
+    bs, S = blocks.shape[:2]
+    bw = nt * layer.system.var_set.n_mi
+    if (blocks.ndim == 3) != (mode == "bf16_factored" and bw > 168):
+        raise AssertionError(f"level {level}'s stored blocks {tuple(blocks.shape)}: W is packed "
+                             "exactly where K3 takes the cluster kernel")
     m, n = bw // nt, nt * S * (bw // nt)
     g = torch.Generator(device=dev).manual_seed(seed + 6 + level)
     x = torch.randn((bs, n), generator=g, device=dev)
@@ -2053,7 +2065,8 @@ def level_kernel(layer, c0, r0, i0, steps, mode, seed, dev, level=0):
     label = (f"{name} ({geo.route}) on the long window's "
              f"{'fine level' if level == 0 else f'level {level}'} (bs {bs}, {S} lines of {bw}^2)")
     resident = resident_clusters(geo) if geo.route == "cluster" else None
-    log(f"  {label}: {geo}" + (f"; {resident} clusters resident at once" if resident else ""))
+    log(f"  {label}: {geo}" + (f"; {resident} clusters resident at once" if resident else "")
+        + ("; W packed" if blocks.ndim == 3 else ""))
     t_k, err = check_line_kernel(label, kern, plain, blocks, x, b, c1, c2, nt)
     lib, to_vec = block_library_call(blocks, x, nt, m, factored)
     check(f"{label} {'two-bmm' if factored else 'bmm'} yardstick", rel_err(to_vec(lib()), t_k),
@@ -2061,7 +2074,8 @@ def level_kernel(layer, c0, r0, i0, steps, mode, seed, dev, level=0):
     kernels = fs._K3_FN if factored else fs._K2_FN[blocks.dtype]
     row = dict(kernel=kernels.line_counted[geo.route], max_abs_err=err, bw=bw, lines=S, bs=bs,
                path=geo.route, panel_rows=geo.panel_rows, cluster=geo.cluster,
-               stages=geo.stages, ctas=geo.ctas, resident_clusters=resident)
+               stages=geo.stages, ctas=geo.ctas, resident_clusters=resident,
+               packed=blocks.ndim == 3)
     row.update(time_line_kernel(label, lambda: kern(blocks, x, nt, d=t_k),
                                 lambda: plain(blocks, x, nt), lib, blocks, bs * n, factored))
     return row
@@ -2184,6 +2198,17 @@ def spd_blocks(bs, S, bw, g, dev):
             linv.transpose(-1, -2).triu().to(torch.bfloat16).contiguous())
 
 
+def k3_operand(W, nt):
+    """K3's W (bs, S, bw, bw), upper-triangular, in the layout the solver
+    stores at its width: packed where K3 takes the cluster kernel
+    (ops/fused_smoother.factored_layout)."""
+    from mech_nn_discovery_pde_torch.ops import fused_smoother as fs
+
+    if fs.factored_layout(nt, W.shape[-1]) == "packed":
+        return fs.pack_upper(W).contiguous()
+    return W
+
+
 def block_library_call(blocks, x, nt, m, factored):
     """The PyTorch call computing a time-line block apply, on an f32 copy of
     the blocks (bs, S, bw, bw): one bmm for B^-1 r (K2), two for W (W^T r)
@@ -2192,6 +2217,8 @@ def block_library_call(blocks, x, nt, m, factored):
     the kernels' (bs, n) vector (for the check, outside the timing)."""
     from mech_nn_discovery_pde_torch.ops import fused_smoother as fs
 
+    if blocks.ndim == 3:  # K3's packed W
+        blocks = fs.unpack_upper(blocks)
     bs, S, bw, _ = blocks.shape
     B = blocks.float().reshape(bs * S, bw, bw)
     rb = fs.line_vec_to_blocks(x, nt, m).reshape(bs * S, bw, 1).contiguous()
@@ -2294,7 +2321,7 @@ def phase_wide_blocks(dev, seed, bs=2):
         c1 = torch.rand((bs,), generator=g, device=dev)
         c2 = torch.rand((bs,), generator=g, device=dev)
         binv, W = spd_blocks(bs, S, bw, g, dev)
-        operands = {"k2": binv, "k2_bf16": binv.to(torch.bfloat16), "k3": W}
+        operands = {"k2": binv, "k2_bf16": binv.to(torch.bfloat16), "k3": k3_operand(W, nt)}
         for name, key, kern, plain, factored in line_kernels():
             blocks = operands[key]
             geo = fs.line_block_geometry(bs, S, bw, blocks.element_size(), _cuda.sm_count(dev),
@@ -2328,7 +2355,8 @@ def phase_wide_blocks(dev, seed, bs=2):
             # beyond the 50 MB L2, which holds the S-line blocks (20-40 MB
             # at bw 280) across back-to-back launches
             big = torch.randn((bs, 4 * S, bw, bw), generator=g, device=dev)
-            big = (big.triu() if factored else big).to(blocks.dtype)
+            big = (k3_operand(big.triu().to(blocks.dtype), nt) if factored
+                   else big.to(blocks.dtype))
             xb = torch.randn((bs, 4 * n), generator=g, device=dev)
             t_big = kern(big, xb, nt)
             check(f"{label} apply, 4 x S lines", rel_err(t_big, plain(big, xb, nt)), 1e-5)

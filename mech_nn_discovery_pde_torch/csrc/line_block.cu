@@ -14,7 +14,9 @@
 //   binv / w (bs, S, bw, bw)   row-major block (inverse, or factor W),
 //                              bw = nt * m, block row i = ti * m + mi;
 //                              W must be upper-triangular (K3 reads only
-//                              its upper triangle)
+//                              its upper triangle); on K3's cluster route
+//                              W is (bs, S, packed_off(bw, bw)), its packed
+//                              upper triangle (see the row-tiled path)
 //   r    (bs, N, m)      f32   flat point-major vector, N = nt * S; line s,
 //                              block row i lives at ((ti * S + s) * m + mi)
 //   d    (bs, N, m)      f32   updated in place: d = c1[b] d + c2[b] t
@@ -116,37 +118,50 @@
 //     stages each: 18 consumer warps an SM (tools/line_block_sweep.py
 //     compares the other geometries).
 //   - K3: k3_factored_line_block_apply_cluster.  W crosses device memory
-//     once: a thread-block cluster of C <= 8 CTAs (the portable limit)
-//     holds one block, CTA c its `rows` block rows from c * rows (the last
-//     CTA's range may be shorter: C = ceil(bw / rows)), and the cluster
-//     walks the items (cluster k takes k, k + clusters, ...), each CTA
-//     through its own ring.  Each item's sweeps wait on the cluster's
-//     slowest CTA, so a CTA's time per item is a chain of latencies more
-//     than bytes (tools/line_block_sweep.py at bw 350: about 10 us an item
-//     at 48 rows as at 88); hence a ring of one stage a CTA and up to 3
-//     CTAs an SM, whose chains overlap each other's loads, rather than
-//     one CTA an SM with several stages; at the mid widths (bw 169 to 190,
-//     the long window's level 1) clusters of 2 CTAs of 2 stages, 3 an SM,
-//     whose next rows load while they compute (tools/line_block_sweep.py
-//     --mid).  Sweep 1: each CTA forms its partial
-//     u_j = sum_{its rows i <= j} W[i, j] r_i for the columns j >= its
-//     first row (one thread per column, as the streamed K3's pass 1).  One
-//     consumer thread then signals the other CTAs (a remote mbarrier
+//     once, and only its upper triangle: the solver stores W at these
+//     widths packed (ops/fused_smoother.pack_upper): row i's entries from
+//     the 8-entry boundary at or before its diagonal to the width rounded
+//     up to 8, zero left of the diagonal and past bw, rows concatenated
+//     (`packed_off`), 63,344 entries a block at bw 350 against 122,500
+//     dense (3.1 % over the triangle's 61,425), every row 16-byte aligned,
+//     so the consumers read 8 entries a load.  A thread-block cluster of
+//     C <= 8 CTAs (the portable limit) holds one block, CTA c the rows
+//     [cluster_row0(c), cluster_row0(c + 1)), one contiguous span and one
+//     bulk copy, an equal share of the packed block as near as whole rows
+//     allow (bw 350, C 2: rows 0-103 and 104-349, 31,616 and 31,728
+//     entries; equal row counts gave CTA 0 1.5 times the mean share, 1.76 at
+//     C 4); the launch's `rows` is ceil(bw / C), from which C follows.
+//     The cluster walks the items (cluster k takes k, k + clusters, ...),
+//     each CTA through its own ring.  An item's sweeps wait on the
+//     cluster's slowest CTA, and what limits a CTA is its instructions and
+//     chains of shared-memory loads an item, not bytes: no thread's chain
+//     grows with the rows its CTA holds beyond one row's chunks.  Sweep 1:
+//     each CTA forms its partial u_j = sum_{its rows i <= j} W[i, j] r_i for
+//     the columns j from its first chunk on: warp v takes the rows v,
+//     v + 8, ... of the CTA, lane l the l-th chunk of each pass of 32 (8
+//     sums a lane, one 16-byte load a row, r broadcast; without branches, 4
+//     rows' loads in flight); the warps' sums land in their rows of a
+//     shared table that each column's thread adds up in warp order.  The
+//     last C consumer threads then signal the other CTAs (a remote mbarrier
 //     arrive, release at cluster scope), and each CTA, once the C - 1
 //     signals of the item have come (acquire at cluster scope), sums for
-//     each of its columns the partials of the CTAs whose rows start at or
+//     each of its columns the partials of the CTAs whose chunks start at or
 //     before it, reading the others' through distributed shared memory
-//     (mapa + ld.shared::cluster) in rank order, so every CTA holds the
-//     same u.  Sweep 2: t_i = sum_{j >= i} W[i, j] u_j from the rows still
-//     in shared memory, 4 rows a warp as in K2.  The partials are
-//     double-buffered by item: CTA c rewrites item k's buffer (at item
-//     k + 2) only after every other CTA's signal of item k + 1, which each
-//     sends after its reads of item k.  A cluster barrier follows the
-//     barriers' initialisation, and one precedes the CTAs' exit (no CTA
-//     leaves while another may read its shared memory).  The launcher caps
-//     the grid at the clusters that can be resident at once
-//     (cudaOccupancyMaxActiveClusters), so no cluster waits for another
-//     to end.
+//     (mapa + ld.shared::cluster, all in flight at once) in rank order, so
+//     every CTA holds the same u.  Sweep 2: t_i = sum_{j >= i} W[i, j] u_j,
+//     a thread a row, over its chunks (no reduction across lanes).  The
+//     partials are double-buffered by item: CTA c rewrites item k's buffer
+//     (at item k + 2) only after every other CTA's signal of item k + 1,
+//     which each sends after its reads of item k.  A cluster barrier
+//     follows the barriers' initialisation, and one precedes the CTAs'
+//     exit (no CTA leaves while another may read its shared memory).  The
+//     launcher caps the grid at the clusters that can be resident at once
+//     (cudaOccupancyMaxActiveClusters), so no cluster waits for another to
+//     end.  Cluster size, stages and CTAs an SM come from
+//     ops/fused_smoother._cluster_geometry (tools/line_block_sweep.py
+//     --k3): 2 CTAs an SM (__launch_bounds__(288, 2)), bw 350: clusters of
+//     2 of one stage, bw 175: of 2 stages.  A block whose pointer is not
+//     16-byte aligned is copied by the producer's lanes entry by entry.
 //   - K3 at blocks too wide for 8 CTAs (bw > 916):
 //     k3_factored_line_block_apply_tiled, which streams the block's panels
 //     through one CTA twice.  Sweep 1 accumulates u = W^T r into a bw-float
@@ -171,13 +186,14 @@
 // Registers and shared memory (nvcc -Xptxas -v, sm_90a, CUDA 12.8 on the
 // H100 machine; chip_smoke.py checks the stack and spills): 48 registers a
 // thread for the three streamed kernels (with the shifted copy and the
-// walks), 56 for the panel and cluster ones and 55 for the two-sweep one,
-// no stack frame, no spills, no static shared memory; the dynamic shared
-// memory is the geometry's (GL shapes: 25,568 B for K2 f32, 13,024 B for
-// K2 bf16, 13,472 B for K3 per CTA, as before the shifted copy; bw 175:
-// 35,072 B for K2 f32 on panels, 186,000 B for K2 bf16 streamed in 3
-// stages, 65,200 B for K3 on a cluster of 2 in 2 stages; bw 350: 70,080 B
-// for K2 f32 on panels, 36,480 B in bf16, 66,912 B for K3 on a cluster).
+// walks), 56 for the panel one, 88 for the cluster one and 55 for the
+// two-sweep one, no stack frame, no spills, no static shared memory; the
+// dynamic shared memory is the geometry's (GL shapes: 25,568 B for K2 f32,
+// 13,024 B for K2 bf16, 13,472 B for K3 per CTA, as before the shifted
+// copy; bw 175: 35,072 B for K2 f32 on panels, 186,000 B for K2 bf16
+// streamed in 3 stages, 43,024 B for K3 on a cluster of 2 in 2 stages;
+// bw 350: 70,080 B for K2 f32 on panels, 36,480 B in bf16, 83,392 B for K3
+// on a cluster of 2 in one stage).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -262,23 +278,81 @@ __host__ __device__ inline PanelLayout make_panel_layout(int bw, int rows, int s
   return L;
 }
 
-// ---- the cluster kernel's layout (line_block_smem_bytes mirrors it)
-//   [full mbarriers: stages x 8 B][empty mbarriers: stages x 8 B][ready: 2 x 8 B]
-//   [partial u: 2 x bw f32][u: bw f32][old d: 2 x rows f32], each padded to 16 B
-//   stages x [rows: rows*bw bf16, padded to 16 B, + 16 B for the shift]
-//            [r: rows f32, padded to 16 B]
-struct ClusterLayout {
-  size_t stage_bytes, r_off, part_off, u_off, dold_off, stage_off, total;
+// ---- the cluster kernel's W: the rows of its upper triangle, concatenated,
+// each from the 8-entry boundary at or before its diagonal to the width
+// rounded up to 8 (ops/fused_smoother.pack_upper): row i holds W[i, a:bwp],
+// a = 8 (i / 8), bwp = 8 ceil(bw / 8), zero left of the diagonal and past
+// bw, from packed_off(bw, i), so every row starts and ends on 16 bytes.
+// CTA c of a cluster of C holds the rows [cluster_row0(c),
+// cluster_row0(c + 1)): the row boundary nearest c / C of the block's
+// entries (the lower one on a tie), so each CTA holds an equal share as
+// near as whole rows allow (ops/fused_smoother.cluster_rows mirrors it)
+__host__ __device__ inline int pad8(int n) { return (n + 7) / 8 * 8; }
+
+__host__ __device__ inline long long packed_off(int bw, int i) {
+  const long long bwp = pad8(bw), g = i / 8, r = i % 8;
+  return 8 * g * bwp - 32 * g * (g - 1) + r * (bwp - 8 * g);
+}
+
+__host__ __device__ inline int cluster_row0(int bw, int C, int c) {
+  const long long t = (long long)c * packed_off(bw, bw);  // C times the share's start
+  // the first row i with C packed_off(bw, i) >= t, by bisection
+  int lo = 0, hi = bw;
+  while (lo < hi) {
+    const int mid = (lo + hi) / 2;
+    if (C * packed_off(bw, mid) >= t) {
+      hi = mid;
+    } else {
+      lo = mid + 1;
+    }
+  }
+  if (lo > 0 && t - C * packed_off(bw, lo - 1) <= C * packed_off(bw, lo) - t) --lo;
+  return lo;
+}
+
+// the most entries and the most rows any CTA of the split holds
+struct ClusterSplit {
+  int emax, nmax;
 };
 
-__host__ __device__ inline ClusterLayout make_cluster_layout(int bw, int rows, int stages) {
+__host__ __device__ inline ClusterSplit cluster_split(int bw, int C) {
+  ClusterSplit s{0, 0};
+  int a = 0;
+  for (int c = 0; c < C; ++c) {
+    const int b = cluster_row0(bw, C, c + 1);
+    s.emax = max(s.emax, (int)(packed_off(bw, b) - packed_off(bw, a)));
+    s.nmax = max(s.nmax, b - a);
+    a = b;
+  }
+  return s;
+}
+
+// ---- the cluster kernel's layout (line_block_smem_bytes mirrors it)
+//   [full mbarriers: stages x 8 B][empty mbarriers: stages x 8 B][ready: 2 x 8 B]
+//   [the split's first rows: kMaxCluster + 1 ints, padded to 16 B]
+//   [this CTA's rows' offsets within their line: bw ints, padded to 16 B]
+//   [partial u: 2 x bwp f32][u: bwp f32][old d: 2 x nmax f32, padded to 16 B]
+//   [sweep 1's sums: kClusterWarps x bwp f32]
+//   stages x [rows: emax bf16][r: nmax f32, padded to 16 B]
+// (bwp = pad8(bw); every part starts on 16 bytes)
+struct ClusterLayout {
+  size_t stage_bytes, r_off, row0_off, loff_off, part_off, u_off, dold_off, sums_off, stage_off,
+      total;
+};
+
+__host__ __device__ inline ClusterLayout make_cluster_layout(int bw, ClusterSplit sp,
+                                                             int stages) {
+  const size_t bwp = pad8(bw);
   ClusterLayout L;
-  L.r_off = pad16((size_t)rows * bw * sizeof(__nv_bfloat16)) + 16;
-  L.stage_bytes = L.r_off + pad16(sizeof(float) * (size_t)rows);
-  L.part_off = 16 * (size_t)stages + 16;
-  L.u_off = L.part_off + pad16(2 * sizeof(float) * (size_t)bw);
-  L.dold_off = L.u_off + pad16(sizeof(float) * (size_t)bw);
-  L.stage_off = L.dold_off + pad16(2 * sizeof(float) * (size_t)rows);
+  L.r_off = pad16((size_t)sp.emax * sizeof(__nv_bfloat16));
+  L.stage_bytes = L.r_off + pad16(sizeof(float) * (size_t)sp.nmax);
+  L.row0_off = 16 * (size_t)stages + 16;
+  L.loff_off = L.row0_off + pad16(sizeof(int) * (kMaxCluster + 1));
+  L.part_off = L.loff_off + pad16(sizeof(int) * (size_t)bw);
+  L.u_off = L.part_off + 2 * sizeof(float) * bwp;
+  L.dold_off = L.u_off + sizeof(float) * bwp;
+  L.sums_off = L.dold_off + pad16(2 * sizeof(float) * (size_t)sp.nmax);
+  L.stage_off = L.sums_off + sizeof(float) * kClusterWarps * bwp;
   L.total = L.stage_off + (size_t)stages * L.stage_bytes;
   return L;
 }
@@ -894,14 +968,22 @@ __global__ void __launch_bounds__(32 + 32 * kPanelMaxRows / kRowsPerWarp, 3)
   }
 }
 
-// warp 0 of a cluster CTA: fill the ring with its rows [i0, i0 + n) of the
-// cluster's items, and their entries of r (4-byte cp.async, 32 arrivals)
+// warp 0 of a cluster CTA: fill the ring with its packed rows [i0, i0 + n)
+// of the cluster's items (one contiguous span of `entries`, a multiple of
+// 8), and their entries of r (4-byte cp.async, 32 arrivals).  The span goes
+// to the stage's start by one bulk copy where it is 16-byte aligned (every
+// span is, on a 16-byte-aligned W); else the lanes copy it entry by entry
+// (32 arrivals either way)
 __device__ __forceinline__ void produce_cluster(const Ring<ClusterLayout>& g,
                                                 const __nv_bfloat16* __restrict__ w,
-                                                const float* __restrict__ r, int m, int nt, int S,
-                                                int items, int i0, int n, ClusterPos cp) {
+                                                const float* __restrict__ r, const int* loff,
+                                                int m, int nt, int S, int items, int i0, int n,
+                                                int entries, ClusterPos cp) {
   const int lane = threadIdx.x;
   const int bw = nt * m;
+  const size_t per_block = (size_t)packed_off(bw, bw);
+  const size_t first = (size_t)packed_off(bw, i0);
+  const uint32_t bytes = (uint32_t)entries * sizeof(__nv_bfloat16);
   int stage = 0;
   uint32_t round = 0;
   for (int it = cp.id; it < items; it += cp.count) {
@@ -911,10 +993,24 @@ __device__ __forceinline__ void produce_cluster(const Ring<ClusterLayout>& g,
     unsigned char* st = g.stage0 + (size_t)stage * g.L.stage_bytes;
     float* rl = reinterpret_cast<float*>(st + g.L.r_off);
     const float* rb = r + ((size_t)b * nt * S + s) * m;
-    for (int j = lane; j < n; j += 32) cp_async4(rl + j, rb + line_row_off(i0 + j, m, S));
+    for (int j = lane; j < n; j += 32) cp_async4(rl + j, rb + loff[j]);
     cp_async_arrive_noinc(&g.full[stage]);
-    panel_copy(st, w + ((size_t)it * bw + i0) * bw,
-               (uint32_t)((size_t)n * bw * sizeof(__nv_bfloat16)), lane, &g.full[stage]);
+    const __nv_bfloat16* src = w + (size_t)it * per_block + first;
+    if (panel_shift(src) == 0) {
+      if (lane == 0 && bytes) {
+        mbar_arrive_expect_tx(&g.full[stage], bytes);
+        bulk_g2s(st, src, bytes, &g.full[stage]);
+      } else {
+        mbar_arrive(&g.full[stage]);
+      }
+    } else {
+      const uint16_t* s2 = reinterpret_cast<const uint16_t*>(src);
+      uint16_t* d2 = reinterpret_cast<uint16_t*>(st);
+      for (int e = lane; e < entries; e += 32) d2[e] = s2[e];
+      // a later bulk copy into this stage (async proxy) follows these stores
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      mbar_arrive(&g.full[stage]);
+    }
     if (++stage == g.stages) {
       stage = 0;
       ++round;
@@ -923,18 +1019,43 @@ __device__ __forceinline__ void produce_cluster(const Ring<ClusterLayout>& g,
   asm volatile("cp.async.wait_all;" ::: "memory");
 }
 
-__global__ void __launch_bounds__(32 + 32 * kClusterWarps)
+// a += the 4 bf16 entries of x, y (two words of a packed row) times v
+__device__ __forceinline__ float dot4(uint32_t x, uint32_t y, float4 v, float a) {
+  a = fmaf(__uint_as_float(x << 16), v.x, a);
+  a = fmaf(__uint_as_float(x & 0xffff0000u), v.y, a);
+  a = fmaf(__uint_as_float(y << 16), v.z, a);
+  return fmaf(__uint_as_float(y & 0xffff0000u), v.w, a);
+}
+
+// acc[0..7] += the 8 bf16 entries of e times x
+__device__ __forceinline__ void axpy8(uint4 e, float x, float* acc) {
+  acc[0] = fmaf(__uint_as_float(e.x << 16), x, acc[0]);
+  acc[1] = fmaf(__uint_as_float(e.x & 0xffff0000u), x, acc[1]);
+  acc[2] = fmaf(__uint_as_float(e.y << 16), x, acc[2]);
+  acc[3] = fmaf(__uint_as_float(e.y & 0xffff0000u), x, acc[3]);
+  acc[4] = fmaf(__uint_as_float(e.z << 16), x, acc[4]);
+  acc[5] = fmaf(__uint_as_float(e.z & 0xffff0000u), x, acc[5]);
+  acc[6] = fmaf(__uint_as_float(e.w << 16), x, acc[6]);
+  acc[7] = fmaf(__uint_as_float(e.w & 0xffff0000u), x, acc[7]);
+}
+
+__global__ void __launch_bounds__(32 + 32 * kClusterWarps, 2)
     k3_factored_line_block_apply_cluster(const __nv_bfloat16* __restrict__ w,
                                          const float* __restrict__ r, float* d, const float* c1,
                                          const float* c2, int m, int nt, int S, int items,
-                                         int rows, int stages) {
+                                         int stages) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int bw = nt * m;
+  const int chunks = pad8(bw) / 8;  // a row's 8-entry chunks, its first at (its row) / 8
   const int consumers = blockDim.x - 32;
-  const ClusterLayout L = make_cluster_layout(bw, rows, stages);
   const ClusterPos cp = cluster_pos();
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
   uint64_t* ready = bars + 2 * stages;  // the other CTAs' signals, by item parity
+  // CTA c's first row (row0[C] = bw), and the offsets of this CTA's rows
+  // within their line: where they lie does not depend on the split
+  const ClusterLayout L0 = make_cluster_layout(bw, ClusterSplit{0, 0}, stages);
+  int* row0 = reinterpret_cast<int*>(smem + L0.row0_off);
+  int* loff = reinterpret_cast<int*>(smem + L0.loff_off);
   if (threadIdx.x == 0) {
     for (int k = 0; k < stages; ++k) {
       mbar_init(&bars[k], 64);  // full: 32 arrivals for r, 32 for the rows
@@ -945,21 +1066,42 @@ __global__ void __launch_bounds__(32 + 32 * kClusterWarps)
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   }
-  // every CTA's barriers are initialised before any remote arrive
+  if (threadIdx.x <= cp.size) row0[threadIdx.x] = cluster_row0(bw, cp.size, threadIdx.x);
+  {
+    const int a = cluster_row0(bw, cp.size, cp.rank), z = cluster_row0(bw, cp.size, cp.rank + 1);
+    for (int t = threadIdx.x; t < z - a; t += blockDim.x) loff[t] = line_row_off(a + t, m, S);
+  }
+  // every CTA's barriers are initialised before any remote arrive (and the
+  // split and the offsets are in place)
   cluster_sync();
+  ClusterSplit sp{0, 0};  // `cluster_split`, from the table
+  for (uint32_t c = 0; c < cp.size; ++c) {
+    sp.emax = max(sp.emax, (int)(packed_off(bw, row0[c + 1]) - packed_off(bw, row0[c])));
+    sp.nmax = max(sp.nmax, row0[c + 1] - row0[c]);
+  }
+  const ClusterLayout L = make_cluster_layout(bw, sp, stages);
   const Ring<ClusterLayout> g{bars, bars + stages, smem + L.stage_off, L, stages};
-  const int i0 = cp.rank * rows;      // this CTA's first block row
-  const int n = min(rows, bw - i0);  // its rows (the last CTA's may be fewer)
+  const int i0 = row0[cp.rank];         // this CTA's first block row
+  const int n = row0[cp.rank + 1] - i0;  // and its rows
+  const int base = (int)packed_off(bw, i0);
   if (threadIdx.x < 32) {
-    produce_cluster(g, w, r, m, nt, S, items, i0, n, cp);
+    produce_cluster(g, w, r, loff, m, nt, S, items, i0, n, (int)packed_off(bw, i0 + n) - base,
+                    cp);
   } else {
     float* part = reinterpret_cast<float*>(smem + L.part_off);
     float* u = reinterpret_cast<float*>(smem + L.u_off);
     float* dold = reinterpret_cast<float*>(smem + L.dold_off);
+    float* sums = reinterpret_cast<float*>(smem + L.sums_off);
     const int q = threadIdx.x - 32;
     const int lane = threadIdx.x & 31;
-    const int q0 = (q >> 5) * kRowsPerWarp;  // the warp's first row in sweep 2
-    const auto ident = [](int c) { return c; };
+    const int warp = q >> 5;
+    const int bwp = 8 * chunks;
+    const int j0 = 8 * (i0 / 8);  // the first column of this CTA's chunks
+    // where row i's chunk i / 8 starts in the CTA's span (packed_off, in int)
+    const auto row_at = [&](int i) {
+      const int gi = i >> 3, ri = i & 7;
+      return 8 * gi * bwp - 32 * gi * (gi - 1) + ri * (bwp - 8 * gi) - base;
+    };
     int stage = 0;
     uint32_t round = 0;
     int k = 0;
@@ -970,46 +1112,101 @@ __global__ void __launch_bounds__(32 + 32 * kClusterWarps)
       // d's old entries of this CTA's rows, and the coefficients, before the
       // wait; dold and part alternate by item (the barriers of item k + 1
       // order item k's reads before item k + 2's writes)
-      float* dk = dold + (k & 1) * rows;
-      float* pk = part + (k & 1) * bw;
+      float* dk = dold + (k & 1) * sp.nmax;
+      float* pk = part + (k & 1) * bwp;
       const float a1 = c1 ? c1[b] : 0.f;
       const float a2 = c2 ? c2[b] : 1.f;
       if (c1)
-        for (int t = q; t < n; t += consumers) dk[t] = d[line + line_row_off(i0 + t, m, S)];
+        for (int t = q; t < n; t += consumers) dk[t] = d[line + loff[t]];
       mbar_wait(&g.full[stage], round & 1);
       const unsigned char* st = g.stage0 + (size_t)stage * L.stage_bytes;
-      const __nv_bfloat16* W = reinterpret_cast<const __nv_bfloat16*>(
-          st + panel_shift(w + ((size_t)it * bw + i0) * bw));  // row i0 + li at W + li * bw
+      // chunk ch (columns 8 ch to 8 ch + 7) of row i >= i0 at
+      // Wc[row_at(i) / 8 + ch - i / 8], 16-byte aligned
+      const uint4* Wc = reinterpret_cast<const uint4*>(st);
       const float* rl = reinterpret_cast<const float*>(st + L.r_off);
       // sweep 1: this CTA's part of u_j = sum_{i <= j} W[i, j] r_i for the
-      // columns j >= i0 (thread per column, down to the diagonal)
-      for (int j = i0 + q; j < bw; j += consumers)
-        pk[j] = dot(W + j, bw, rl, min(n, j - i0 + 1), ident);
+      // columns j >= j0.  Warp v takes the rows i0 + v, i0 + v + 8, ..., lane
+      // l the chunk c0 + l of each pass of 32 chunks from j0 / 8 (8 sums a
+      // lane, one 16-byte load a row); the warps' sums go to their rows of
+      // `sums`, then each column's thread adds them in warp order
+      for (int c0 = j0 / 8; c0 < chunks; c0 += 32) {
+        const int ch = c0 + lane;
+        float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+        const int end = min(i0 + n, 8 * (c0 + 32));  // later rows start past the pass
+        // without branches, so that the loads of several rows are in flight:
+        // a lane off its row's chunks reads the span's first and adds 0 times
+        // it.  Row i's chunk ch at Wc[at + ch], at = row_at(i) / 8 - i / 8,
+        // which grows by bwp - i - 1 from row i to row i + 8
+        static_assert(kClusterWarps == 8, "a warp's rows step by 8, one group of 8 rows");
+        int i = i0 + warp;
+        int at = (row_at(i) >> 3) - (i >> 3);
+#pragma unroll 4
+        for (; i < end; i += kClusterWarps) {
+          const bool on = ch >= (i >> 3) && ch < chunks;
+          const uint4 e = Wc[(at + ch) * on];
+          axpy8(e, on ? rl[i - i0] : 0.f, acc);
+          at += bwp - i - 1;
+        }
+        if (ch < chunks) {
+          float4* o = reinterpret_cast<float4*>(sums + warp * bwp + 8 * ch);
+          o[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+          o[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
+        }
+      }
       consumers_sync(consumers);
-      if (q == 0)
-        for (uint32_t c = 0; c < cp.size; ++c)
-          if (c != cp.rank) mbar_arrive_remote(&ready[k & 1], c);
+      for (int j = j0 + 4 * q; j < bwp; j += 4 * consumers) {
+        float4 v = reinterpret_cast<const float4*>(sums + j)[0];
+#pragma unroll
+        for (int v_ = 1; v_ < kClusterWarps; ++v_) {
+          const float4 x = reinterpret_cast<const float4*>(sums + v_ * bwp + j)[0];
+          v.x += x.x;
+          v.y += x.y;
+          v.z += x.z;
+          v.w += x.w;
+        }
+        reinterpret_cast<float4*>(pk + j)[0] = v;
+      }
+      consumers_sync(consumers);
+      // each other CTA's signal from a thread of its own, the last ones (a
+      // cluster-scope release waits for the thread's own stores, and the
+      // last threads hold no row of sweep 2 where the CTA's rows are fewer)
+      const int to = consumers - 1 - q;
+      if (to < (int)cp.size && to != (int)cp.rank) mbar_arrive_remote(&ready[k & 1], to);
       mbar_wait_cluster(&ready[k & 1], (k >> 1) & 1);
-      // u_j: the partials of the CTAs whose rows start at or before j, in
-      // rank order (every CTA sums them alike)
-      for (int j = i0 + q; j < bw; j += consumers) {
-        const int last = min((int)cp.size - 1, j / rows);
-        float v = 0.f;
-        for (int c = 0; c <= last; ++c)
-          v += c == (int)cp.rank ? pk[j] : ld_cluster(cluster_addr(pk + j, c));
+      // u_j: the partials of the CTAs whose chunks start at or before j, in
+      // rank order (every CTA sums them alike; a CTA's partial is 0 left of
+      // its first row), the loads in flight together
+      for (int j = j0 + q; j < bwp; j += consumers) {
+        float x[kMaxCluster];
+#pragma unroll
+        for (int c = 0; c < kMaxCluster; ++c)
+          x[c] = c >= (int)cp.size || 8 * (row0[c] / 8) > j ? 0.f
+                 : c == (int)cp.rank                       ? pk[j]
+                                                           : ld_cluster(cluster_addr(pk + j, c));
+        float v = x[0];
+#pragma unroll
+        for (int c = 1; c < kMaxCluster; ++c) v += x[c];
         u[j] = v;
       }
       consumers_sync(consumers);
-      // sweep 2: t_i = sum_{j >= i} W[i, j] u_j, 4 rows a warp from the
-      // first one's diagonal (the others' entries left of theirs are zero)
-      for (int g0 = q0; g0 < n; g0 += consumers / 32 * kRowsPerWarp) {
-        const auto row = [&](int kk) { return W + (size_t)min(g0 + kk, n - 1) * bw; };
-        const float t = warp_rows_dot(row(0), row(1), row(2), row(3), u, i0 + g0, bw, lane);
-        const int li = g0 + (lane >> 3);
-        if ((lane & 7) == 0 && li < n) {
-          const Epilogue e{line + line_row_off(i0 + li, m, S), a1, a2, c1 ? dk[li] : 0.f};
-          epilogue_store(d, e, c1 != nullptr, t);
+      // sweep 2: t_i = sum_{j >= i} W[i, j] u_j, a thread a row (no
+      // reduction across lanes), over its chunks from i / 8 on (what limits
+      // it is the instructions a chunk, not the banks: the 8 rows of a group
+      // read one u chunk, a broadcast, and their W chunks a row apart)
+      const float4* u4 = reinterpret_cast<const float4*>(u);
+      for (int li = q; li < n; li += consumers) {
+        const int i = i0 + li, f = i >> 3;
+        const uint4* wr = Wc + ((row_at(i) >> 3) - f);  // chunk ch at wr[ch]
+        float s0 = 0.f, s1 = 0.f;
+#pragma unroll 2
+        for (int ch = f; ch < chunks; ++ch) {
+          const uint4 e = wr[ch];
+          const float4 v0 = u4[2 * ch], v1 = u4[2 * ch + 1];
+          s0 = dot4(e.x, e.y, v0, s0);
+          s1 = dot4(e.z, e.w, v1, s1);
         }
+        const Epilogue e{line + loff[li], a1, a2, c1 ? dk[li] : 0.f};
+        epilogue_store(d, e, c1 != nullptr, s0 + s1);
       }
       mbar_arrive(&g.empty[stage]);
       if (++stage == stages) {
@@ -1125,9 +1322,10 @@ int check_launch(const void* blocks, int m, int nt, int S, int bs, int ctas, int
         return (int)cudaErrorInvalidValue;
       return 0;
     case kCluster:
-      // whole clusters of C = panels CTAs
+      // whole clusters of C = panels CTAs, each CTA's share of the packed
+      // triangle (`cluster_row0`) in the layout
       if (ctas % panels != 0 || (reinterpret_cast<uintptr_t>(blocks) & 1) != 0 ||
-          (size_t)smem_bytes != make_cluster_layout(bw, rows, stages).total)
+          (size_t)smem_bytes != make_cluster_layout(bw, cluster_split(bw, panels), stages).total)
         return (int)cudaErrorInvalidValue;
       return 0;
     case kTwoSweep:
@@ -1238,7 +1436,7 @@ int line_block_launch(const TB* blocks, const float* r, float* d, const float* c
   if constexpr (FACTORED) {
     if (route == kCluster)
       return launch_cluster(ctas / panels, panels, smem_bytes, stream, blocks, r, d, c1, c2, m,
-                            nt, S, items, rows, stages);
+                            nt, S, items, stages);
     if (route == kTwoSweep)
       return launch(k3_factored_line_block_apply_tiled, &allowed_tiled, ctas,
                     32 + (rows + 31) / 32 * 32, smem_bytes, stream, blocks, r, d, c1, c2, m, nt,
@@ -1280,7 +1478,7 @@ int k2_line_block_apply_bf16(const __nv_bfloat16* binv, const float* r, float* d
                                                   stages, smem_bytes, flags, stream);
 }
 
-// bf16 upper-triangular W, f32 vectors
+// bf16 upper-triangular W (packed on the cluster route), f32 vectors
 int k3_factored_line_block_apply_bf16(const __nv_bfloat16* w, const float* r, float* d,
                                       const float* c1, const float* c2, int m, int nt, int S,
                                       int bs, int ctas, int rows, int stages, int smem_bytes,

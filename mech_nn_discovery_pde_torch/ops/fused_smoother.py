@@ -47,7 +47,9 @@ csrc/point_block.cu, which stream tiles of many blocks per ring stage
 
 Vectors are the flat point-major (bs, N*m) solver layout, float32; the
 block inverse (or W) is (bs, S, bw, bw) row-major with block row
-i = ti*m + mi (bw = nt*m, S spatial lines), float32 or bfloat16.  On CUDA
+i = ti*m + mi (bw = nt*m, S spatial lines), float32 or bfloat16, except
+that W is stored packed, its upper triangle's rows (`pack_upper`), where
+K3 takes the cluster kernel (`factored_layout`).  On CUDA
 tensors both halves launch kernels; on CPU tensors they run their plain
 versions (`block_apply_plain`, `factored_block_apply_plain`,
 `stencil_apply_plain`), which upcast a bfloat16 operand first.
@@ -57,6 +59,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -141,12 +144,79 @@ def factored_block_apply_plain(
 ) -> torch.Tensor:
     """K3's plain version: u = W^T r and t = W u over the line blocks with W
     upcast to float32 (the JAX package's factored `_block_apply`), then the
-    same epilogue as `block_apply`."""
+    same epilogue as `block_apply`.  W dense (bs, S, bw, bw), or packed
+    (bs, S, packed_off(bw, bw): `pack_upper`), which is unpacked first."""
+    if w.ndim == 3:
+        w = unpack_upper(w)
     m = r.shape[1] // (nt * w.shape[1])
     wf = w.to(r.dtype)
     u = torch.einsum("bsij,bsi->bsj", wf, line_vec_to_blocks(r, nt, m))
     t = torch.einsum("bsij,bsj->bsi", wf, u)
     return _epilogue(line_blocks_to_vec(t, nt, m), d, c1, c2)
+
+
+# K3's packed W (the cluster kernel's operand): the rows of the upper
+# triangle concatenated, each from the PACK_STEP-entry boundary at or before
+# its diagonal to the width rounded up to PACK_STEP, zero left of the
+# diagonal and past bw, so that every row starts on 16 bytes of bf16 and
+# the kernel reads 8 entries a load
+PACK_STEP = 8
+
+
+def packed_off(bw: int, i: int) -> int:
+    """Where row i of a packed W of width bw starts (`packed_off` in
+    csrc/line_block.cu): row i holds W[i, a:bwp], a = i rounded down to a
+    multiple of PACK_STEP, bwp = bw rounded up to one, bwp - a entries."""
+    bwp = -(-bw // PACK_STEP) * PACK_STEP
+    g, r = divmod(i, PACK_STEP)
+    return PACK_STEP * g * bwp - 32 * g * (g - 1) + r * (bwp - PACK_STEP * g)
+
+
+def packed_width(entries: int) -> int:
+    """The width bw of a packed W of `entries` entries a block
+    (packed_off(bw, bw), which grows with bw)."""
+    bw = max(1, math.isqrt(2 * entries))
+    while bw > 1 and packed_off(bw, bw) > entries:
+        bw -= 1
+    while packed_off(bw, bw) < entries:
+        bw += 1
+    if packed_off(bw, bw) != entries:
+        raise ValueError(f"{entries} entries are no packed upper triangle")
+    return bw
+
+
+@functools.lru_cache(maxsize=16)
+def _packed_index(bw: int, device: torch.device):
+    """For the packed entries in order: their (row, column) in the block
+    (the diagonal's where the entry is padding), and the positions of the
+    padding."""
+    bwp = -(-bw // PACK_STEP) * PACK_STEP
+    rows = np.repeat(np.arange(bw), [bwp - i // PACK_STEP * PACK_STEP for i in range(bw)])
+    cols = np.concatenate([np.arange(i // PACK_STEP * PACK_STEP, bwp) for i in range(bw)])
+    pad = (cols < rows) | (cols >= bw)
+    cols = np.where(pad, rows, cols)
+    as_t = lambda a: torch.as_tensor(a, dtype=torch.long, device=device)  # noqa: E731
+    return as_t(rows), as_t(cols), as_t(np.flatnonzero(pad)), as_t(np.flatnonzero(~pad))
+
+
+def pack_upper(w: torch.Tensor) -> torch.Tensor:
+    """The upper triangles of the (..., bw, bw) blocks w, packed: (...,
+    packed_off(bw, bw)), row i's W[i, a:bwp] from `packed_off(bw, i)` (zero
+    left of the diagonal and past bw; see PACK_STEP).  A gather of those
+    entries alone, also from a strided view such as a transpose (no dense
+    copy of w is made)."""
+    ii, jj, pad, _ = _packed_index(w.shape[-1], w.device)
+    return w[..., ii, jj].index_fill_(-1, pad, 0)
+
+
+def unpack_upper(wp: torch.Tensor) -> torch.Tensor:
+    """`pack_upper`'s inverse: (..., bw, bw) blocks, zero below the
+    diagonal."""
+    bw = packed_width(wp.shape[-1])
+    ii, jj, _, keep = _packed_index(bw, wp.device)
+    w = wp.new_zeros(wp.shape[:-1] + (bw * bw,))
+    w[..., ii[keep] * bw + jj[keep]] = wp[..., keep]
+    return w.reshape(wp.shape[:-1] + (bw, bw))
 
 
 def block_apply(
@@ -187,17 +257,19 @@ def factored_block_apply(
     c2: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """t = W (W^T r) = B^-1 r per time-line block, from the bfloat16 factor
-    W = L^-T of mg_precond_dtype='bf16_factored' (bs, S, bw, bw); same
-    vectors and epilogue as `block_apply`.  CUDA tensors launch kernel K3
-    (its point-block kernel where `point_path(nt, bw)`); CPU tensors run the
-    plain version.
+    W = L^-T of mg_precond_dtype='bf16_factored'; same vectors and epilogue
+    as `block_apply`.  CUDA tensors launch kernel K3 (its point-block kernel
+    where `point_path(nt, bw)`); CPU tensors run the plain version.
 
-    Contract: W is upper-triangular, with an exactly zero strict lower
-    triangle (the solver stores L^-T with `.triu()`).  K3 reads only the
-    upper triangle; the plain version reads all of W.  K3 takes any bw: a
-    block with bw > 168 is held by a thread-block cluster of up to 8 CTAs,
-    which read W once (to bw 916), and a wider one streams in panels of
-    rows, twice (`line_block_geometry`)."""
+    Contract: W is upper-triangular, stored as `factored_layout(nt, bw)`
+    says: "dense" (bs, S, bw, bw) with an exactly zero strict lower
+    triangle, or "packed" (bs, S, packed_off(bw, bw)), the rows of its
+    upper triangle concatenated (`pack_upper`).  K3 reads only the upper
+    triangle; the plain version reads all of W (unpacked).  K3 takes any
+    bw: a block with bw > 168 is held by a thread-block cluster of up to 8
+    CTAs, which read the packed W once (to bw 916), and a wider one streams
+    in panels of rows of the dense W, twice (`line_block_geometry`).  On
+    CUDA the layout must be the width's."""
     if w.is_cuda:
         if w.dtype != torch.bfloat16:
             raise ValueError(f"factored_block_apply: K3 takes a bfloat16 W, got {w.dtype}")
@@ -274,11 +346,17 @@ _PANEL_CTAS_PER_SM = 3
 _PANEL_STAGES = 2
 _PANEL_MAX_STAGES = 4
 # the cluster kernel (K3): at most _MAX_CLUSTER CTAs a cluster (the portable
-# limit), at most _CLUSTER_CTAS_PER_SM CTAs an SM, one stage each, but 2
-# stages in clusters of 2 where _CLUSTER_CTAS_PER_SM CTAs an SM hold them
-# (mid widths, bw 169 to 190: tools/line_block_sweep.py --mid)
+# limit), _CLUSTER_CTAS_PER_SM CTAs an SM (its registers hold no more:
+# __launch_bounds__(288, 2)), up to _CLUSTER_MAX_STAGES stages each
+# (tools/line_block_sweep.py --k3 at bw 350 and 175 on an H100)
 _MAX_CLUSTER = 8
-_CLUSTER_CTAS_PER_SM = 3
+_CLUSTER_CTAS_PER_SM = 2
+_CLUSTER_MAX_STAGES = 2
+# the cluster kernel's consumer warps a CTA (kClusterWarps)
+_CLUSTER_WARPS = 8
+# the widest block the cluster kernel takes (8 CTAs of dense rows' reach;
+# unmeasured beyond); a wider one keeps the two-sweep kernel and dense W
+_CLUSTER_MAX_BW = 916
 # the two-sweep K3 (blocks too wide for a cluster): the most CTAs per SM
 # whose panels still hold one full warp of rows
 _PANEL_MIN_ROWS = 32
@@ -352,9 +430,13 @@ def line_block_smem_bytes(bw: int, stages: int, entry_bytes: int, factored: bool
     as for a 16-byte-aligned pointer).  Panels (`make_panel_layout`): the
     mbarriers, and per stage a panel of `rows` block rows padded to 16 bytes
     plus 16 for its shift, and r's line.  Cluster (`make_cluster_layout`,
-    bf16): the mbarriers and 2 more, the double-buffered partial u (bw f32),
-    u, d's old entries of the CTA's rows (double-buffered), and per stage
-    the CTA's rows (plus 16 bytes) and their r.  Two-sweep
+    bf16, C = ceil(bw / rows) CTAs): the mbarriers and 2 more, the split's
+    first rows, a CTA's rows' offsets in their line (bw ints), the
+    double-buffered partial u (bw f32), u, d's old entries
+    of a CTA's rows (double-buffered), sweep 1's table (8 x bw f32), and
+    per stage a CTA's packed rows (the most entries any CTA of
+    `cluster_rows` holds) and their r (its most rows).
+    Two-sweep
     (`make_tiled_layout`): the mbarriers, K3's u, r's line double-buffered,
     and per stage a panel of `rows`."""
     route = line_block_route(bw, rows, factored)
@@ -368,10 +450,43 @@ def line_block_smem_bytes(bw: int, stages: int, entry_bytes: int, factored: bool
     if route == "panels":
         return 16 * stages + stages * (_pad16(rows * bw * entry_bytes) + 16 + _pad16(4 * bw))
     if route == "cluster":
-        stage = _pad16(rows * bw * 2) + 16 + _pad16(4 * rows)
-        return (16 * stages + 16 + _pad16(2 * 4 * bw) + _pad16(4 * bw) + _pad16(2 * 4 * rows)
-                + stages * stage)
+        emax, nmax = _cluster_extent(bw, -(-bw // rows))
+        bwp = -(-bw // PACK_STEP) * PACK_STEP
+        stage = _pad16(2 * emax) + _pad16(4 * nmax)
+        return (16 * stages + 16 + _pad16(4 * (_MAX_CLUSTER + 1)) + _pad16(4 * bw)
+                + 2 * 4 * bwp + 4 * bwp
+                + _pad16(2 * 4 * nmax) + 4 * _CLUSTER_WARPS * bwp + stages * stage)
     return _two_sweep_smem_bytes(bw, rows, stages, entry_bytes)
+
+
+@functools.lru_cache(maxsize=256)
+def cluster_rows(bw: int, C: int) -> tuple:
+    """The cluster kernel's split of a block of width bw over C CTAs: the
+    C + 1 row boundaries, CTA c holding rows [b[c], b[c + 1]).  b[c] is the
+    row i whose C packed_off(bw, i) lies nearest c times the packed block's
+    packed_off(bw, bw) entries, the lower on a tie (`cluster_row0` in
+    csrc/line_block.cu): each CTA holds an equal share of the packed
+    block, as near as whole rows allow."""
+    total = packed_off(bw, bw)
+    out = []
+    for c in range(C + 1):
+        t = c * total
+        lo, hi = 0, bw  # the first row i with C packed_off(bw, i) >= t
+        while lo < hi:
+            mid = (lo + hi) // 2
+            lo, hi = (lo, mid) if C * packed_off(bw, mid) >= t else (mid + 1, hi)
+        if lo > 0 and t - C * packed_off(bw, lo - 1) <= C * packed_off(bw, lo) - t:
+            lo -= 1
+        out.append(lo)
+    return tuple(out)
+
+
+def _cluster_extent(bw: int, C: int):
+    """(the most packed entries, the most rows) any CTA of `cluster_rows`
+    holds."""
+    b = cluster_rows(bw, C)
+    return (max(packed_off(bw, b[c + 1]) - packed_off(bw, b[c]) for c in range(C)),
+            max(b[c + 1] - b[c] for c in range(C)))
 
 
 def _two_sweep_smem_bytes(bw: int, rows: int, stages: int, entry_bytes: int) -> int:
@@ -524,33 +639,30 @@ def _panel_geometry(bs, S, bw, entry_bytes, n_sm):
 
 
 def _cluster_geometry(bs, S, bw, n_sm):
-    """K3's cluster kernel, or None where no cluster of _MAX_CLUSTER CTAs
-    holds the block.  A CTA computes one item at a time, and each item's
-    sweeps wait on the cluster's slowest CTA, so a CTA's time per item is
-    latency more than bytes: one stage a CTA (its next item loads while the
-    other CTAs on its SM compute), the most CTAs an SM (at most
-    _CLUSTER_CTAS_PER_SM), and at that the smallest cluster C (rows a
-    multiple of 8, at least bw / C), so the most clusters are resident.  At
-    bw 350: C 4 of 88 rows (67 KB), 3 CTAs an SM.  But where clusters of 2
-    hold the block in 2 stages, _CLUSTER_CTAS_PER_SM an SM (bw 169 to 190),
-    those: an item's rows load while the CTA computes on the last's (bw 175:
-    88 rows, 69 KB)."""
-    rows = _PANEL_ROW_STEP * -(-bw // (2 * _PANEL_ROW_STEP))
-    smem = line_block_smem_bytes(bw, 2, 2, True, rows)
-    if rows < bw and _CLUSTER_CTAS_PER_SM * (smem + _SMEM_RESERVED) <= _SMEM_PER_SM:
-        return LineBlockGeometry(ctas=2 * min(bs * S, n_sm * _CLUSTER_CTAS_PER_SM // 2), stages=2,
-                                 smem_bytes=smem, bulk=True, panel_rows=rows, route="cluster",
-                                 cluster=2)
-    for per_sm in range(_CLUSTER_CTAS_PER_SM, 0, -1):
+    """K3's cluster kernel, or None past _CLUSTER_MAX_BW or where no cluster
+    of _MAX_CLUSTER CTAs holds the block.  An item's sweeps wait on the
+    cluster's slowest CTA and on the signals between its CTAs, so what sets
+    the pace is how many clusters work at once and how few CTAs share an
+    item: _CLUSTER_CTAS_PER_SM CTAs an SM (else one), the smallest cluster
+    C whose packed rows they hold, and as many stages (up to
+    _CLUSTER_MAX_STAGES) as then fit, so that an item's rows load while the
+    CTA computes on the last's.  bw 350: C 2 of one stage (83 KB), bw 175:
+    C 2 of 2 stages (43 KB), 2 an SM.  The launch's rows are ceil(bw / C);
+    the CTAs' rows are `cluster_rows`' equal shares of the packed block."""
+    if bw > _CLUSTER_MAX_BW:
+        return None
+    for per_sm in (_CLUSTER_CTAS_PER_SM, 1):
         budget = min(_SMEM_PER_SM // per_sm - _SMEM_RESERVED, _SMEM_PER_BLOCK)
-        for c in range(2, _MAX_CLUSTER + 1):
-            rows = _PANEL_ROW_STEP * -(-bw // (_PANEL_ROW_STEP * c))
-            smem = line_block_smem_bytes(bw, 1, 2, True, rows)
-            if rows < bw and smem <= budget:
-                cluster = -(-bw // rows)
-                return LineBlockGeometry(ctas=cluster * min(bs * S, n_sm * per_sm // cluster),
-                                         stages=1, smem_bytes=smem, bulk=True, panel_rows=rows,
-                                         route="cluster", cluster=cluster)
+        for C in range(2, _MAX_CLUSTER + 1):
+            rows = -(-bw // C)
+            if rows >= bw or -(-bw // rows) != C:
+                continue
+            stages = _most_stages(bw, rows, 2, True, budget, _CLUSTER_MAX_STAGES)
+            if stages:
+                return LineBlockGeometry(
+                    ctas=C * max(1, min(bs * S, n_sm * per_sm // C)), stages=stages,
+                    smem_bytes=line_block_smem_bytes(bw, stages, 2, True, rows), bulk=True,
+                    panel_rows=rows, route="cluster", cluster=C)
     return None
 
 
@@ -604,12 +716,11 @@ def line_block_geometry(bs: int, S: int, bw: int, entry_bytes: int, n_sm: int,
       - K2: the panel kernel (`_panel_geometry`: panels of 24 rows or fewer,
         3 CTAs an SM of 2 stages each, more stages where they keep less
         than 32 KB in flight; 24 rows at bw 175, 280 and 350);
-      - K3: the cluster kernel where at most 8 CTAs hold a block
-        (`_cluster_geometry`: 2 CTAs of 2 stages, 3 an SM, at bw 169 to
-        190, bw 175: 88 rows; else one stage a CTA, the most CTAs an SM up
-        to 3, then the smallest cluster, bw 350: 4 CTAs of 88 rows, 3 an
-        SM), which is up to bw 916 (8 CTAs, one an SM); a wider block takes
-        the two-sweep kernel (`_two_sweep_geometry`), which reads W twice.
+      - K3: the cluster kernel, on W packed (`pack_upper`), which is up to
+        bw 916 (`_cluster_geometry`: 2 CTAs an SM, the smallest cluster
+        whose shares of the packed block they hold, up to 2 stages; bw 175:
+        2 CTAs of 2 stages, bw 350: 2 CTAs of one); a wider block takes the
+        two-sweep kernel (`_two_sweep_geometry`), which reads W twice.
     Raises ValueError for a bad shape, and for a bw so large that r's line
     (and K3's u) leave no room for one row: above about 12,900 for K3,
     19,300 for K2 in f32."""
@@ -720,14 +831,47 @@ def point_block_geometry(bs: int, N: int, bw: int, entry_bytes: int, n_sm: int,
         bulk=tile_bytes % 16 == 0 and 4 * tile * bw % 16 == 0)
 
 
+@functools.lru_cache(maxsize=64)
+def factored_layout(nt: int, bw: int) -> str:
+    """How the solver stores K3's factor W of time-line blocks of width bw
+    (nt positions): "packed" (`pack_upper`, bs x S x packed_off(bw, bw)) where
+    K3 takes the cluster kernel, which reads the packed upper triangle,
+    else "dense" (bs x S x bw x bw, zero below the diagonal: the point, the
+    streamed and the two-sweep kernels).  From the shape alone: the
+    cluster route follows from bw at any batch and card
+    (`line_block_geometry`)."""
+    if point_path(nt, bw):
+        return "dense"
+    return "packed" if line_block_geometry(1, 1, bw, 2, 1, True).route == "cluster" else "dense"
+
+
+def _block_shape(blocks: torch.Tensor, nt: int, factored: bool, fn: str):
+    """(bs, S, bw) of a block apply's blocks: (bs, S, bw, bw), or K3's
+    packed (bs, S, packed_off(bw, bw)) where `factored_layout` says so."""
+    if blocks.ndim == 3 and factored:
+        bs, S, entries = blocks.shape
+        bw = packed_width(entries)
+    elif blocks.ndim == 4 and blocks.shape[2] == blocks.shape[3]:
+        bs, S, bw, _ = blocks.shape
+    else:
+        raise ValueError(f"{fn}: bad block shape {tuple(blocks.shape)}")
+    if bw % nt:
+        raise ValueError(f"{fn}: bad block shape {tuple(blocks.shape)} for nt={nt}")
+    if factored and (blocks.ndim == 3) != (factored_layout(nt, bw) == "packed"):
+        raise ValueError(f"{fn}: W of width {bw} is stored {factored_layout(nt, bw)} "
+                         f"(`factored_layout`), got {tuple(blocks.shape)}")
+    return bs, S, bw
+
+
 def block_apply_route(blocks: torch.Tensor, nt: int, factored: bool) -> str:
-    """The route a block apply of `blocks` (bs, S, bw, bw) takes: "plain"
-    off CUDA (the plain versions), "point" on the point-block kernels
-    (`point_path`), else the line kernel that `line_block_geometry` picks
-    ("streamed", "panels", "cluster" or "two_sweep"; `line_block_route`)."""
+    """The route a block apply of `blocks` (bs, S, bw, bw, or K3's packed
+    bs, S, packed_off(bw, bw)) takes: "plain" off CUDA (the plain versions),
+    "point" on the point-block kernels (`point_path`), else the line kernel
+    that `line_block_geometry` picks ("streamed", "panels", "cluster" or
+    "two_sweep"; `line_block_route`)."""
     if not blocks.is_cuda:
         return "plain"
-    bs, S, bw, _ = blocks.shape
+    bs, S, bw = _block_shape(blocks, nt, factored, "block_apply_route")
     if point_path(nt, bw):
         return "point"
     return line_block_geometry(bs, S, bw, blocks.element_size(), _cuda.sm_count(blocks.device),
@@ -737,10 +881,8 @@ def block_apply_route(blocks: torch.Tensor, nt: int, factored: bool) -> str:
 def _launch_line_block(kernels, blocks, r, nt, d, c1, c2):
     """Check the operands of a block apply and launch its kernel: the
     point-block one where `point_path(nt, bw)`, else the line one."""
-    bs, S, bw, bw2 = blocks.shape
     fn = kernels.line_fn
-    if bw != bw2 or bw % nt:
-        raise ValueError(f"{fn}: bad block shape {tuple(blocks.shape)} for nt={nt}")
+    bs, S, bw = _block_shape(blocks, nt, kernels.factored, fn)
     m = bw // nt
     if tuple(r.shape) != (bs, nt * S * m):
         raise ValueError(f"{fn}: r {tuple(r.shape)} does not match the blocks")

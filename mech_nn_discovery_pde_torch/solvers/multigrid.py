@@ -27,8 +27,10 @@ over a leading sample axis throughout:
 - storage (config.mg_precond_dtype): the stored operators are float32
   ('f32'), all bfloat16 ('bf16': block inverses, stencil fields, coarse
   inverse), or the block inverses' PSD square-root factors W = L^-T in
-  bfloat16 ('bf16_factored': B^-1 r = W (W^T r), kernel K3).  Assembly,
-  factorization, vectors and the lmax power iteration stay float32.
+  bfloat16 ('bf16_factored': B^-1 r = W (W^T r), kernel K3; W stored as
+  its upper triangle's rows where K3 takes its cluster kernel,
+  ops/fused_smoother.factored_layout).  Assembly, factorization, vectors
+  and the lmax power iteration stay float32.
 
 The hierarchy carries no gradient (it only affects convergence); gradients
 flow through the IFT backward in ops/normal_solve.py.
@@ -65,7 +67,9 @@ from mech_nn_discovery_pde_torch.ops.fused_smoother import (
     chebyshev_schedule,
     chebyshev_smooth_op,
     factored_block_apply,
+    factored_layout,
     jacobi_smooth,
+    pack_upper,
 )
 from mech_nn_discovery_pde_torch.ops.interp import apply_separable, interp_matrix
 from mech_nn_discovery_pde_torch.ops.normal_stencil import (
@@ -344,7 +348,7 @@ class MultigridSolver:
             else:
                 B = sysk.assemble_line_blocks(v32)  # (bs, S, bw, bw)
             with span("hierarchy.block_factor"):
-                binv = self._block_inverse(B)
+                binv = self._block_inverse(B, self._block_nt(k))
             del B
             # the rounded (or factored) operators must be stored before lmax is
             # estimated: Chebyshev amplifies any mode above an underestimate
@@ -360,9 +364,12 @@ class MultigridSolver:
             lvl["sched"] = chebyshev_schedule(lvl["lmax"], self.config.mg_chebyshev_ratio, steps)
             return lvl
 
-    def _block_inverse(self, B: torch.Tensor) -> torch.Tensor:
+    def _block_inverse(self, B: torch.Tensor, nt: int) -> torch.Tensor:
         """B^-1 of every block (a 1e-6 max-diag ridge, Cholesky, then the
-        explicit inverse), or the factor W = L^-T (B^-1 = W W^T)."""
+        explicit inverse), or the factor W = L^-T (B^-1 = W W^T), upper-
+        triangular: dense, or where K3 reads it packed (blocks of nt
+        positions and width bw, ops/fused_smoother.factored_layout) its upper
+        triangle's rows, gathered straight from L^-1 (no dense copy)."""
         nb = B.shape[-1]
         eye = torch.eye(nb, dtype=B.dtype, device=B.device)
         d = torch.diagonal(B, dim1=-2, dim2=-1)
@@ -372,6 +379,8 @@ class MultigridSolver:
         if self._factored_binv:
             # B^-1 = L^-T L^-1 = W W^T with W = L^-T
             linv = torch.linalg.solve_triangular(L, eye.expand_as(B), upper=False)
+            if factored_layout(nt, nb) == "packed":
+                return pack_upper(linv.transpose(-1, -2))
             return linv.transpose(-1, -2).triu()
         return torch.cholesky_solve(eye.expand_as(B), L)
 
@@ -401,11 +410,14 @@ class MultigridSolver:
 
     def _block_attrs(self, k: int, lvl) -> Dict[str, Any]:
         """Level k's block applies described: `level`, `route` (the kernel
-        its blocks take, ops/fused_smoother.block_apply_route) and `storage`
-        (mg_precond_dtype)."""
+        its blocks take, ops/fused_smoother.block_apply_route), `storage`
+        (mg_precond_dtype) and `layout` ("packed" where W is stored as its
+        upper triangle's rows, ops/fused_smoother.factored_layout, else
+        "dense")."""
         return {"level": k,
                 "route": block_apply_route(lvl["binv"], self._block_nt(k), self._factored_binv),
-                "storage": self.config.mg_precond_dtype}
+                "storage": self.config.mg_precond_dtype,
+                "layout": "packed" if lvl["binv"].ndim == 3 else "dense"}
 
     def _estimate_lmax(self, k: int, lvl, iters: int = 20) -> torch.Tensor:
         """Power iteration on B^-1 AtA (batched), biased high by the

@@ -56,6 +56,10 @@ if os.environ.get("PYTEST_RAISE_MAX_MAP_COUNT", "1" if os.geteuid() == 0 else "0
         pass
 
 
+def pytest_configure(config):
+    config.addinivalue_line("markers", "chip: needs a CUDA device (an H100); skips without one")
+
+
 def pytest_runtest_teardown(item):
     """Optionally log per-test process maps/RSS (segfault forensics)."""
     if not os.environ.get("PYTEST_RESOURCE_LOG"):

@@ -3,7 +3,9 @@ CPU at a tiny size: `GLConfig.downsample_first` reaches the multigrid layer
 (False by default, as the published setting and `gl-train` have it), and
 with it True a trainer on (12, 12, 12) patches, n_grid 2, bs 2, in
 'bf16_factored' storage builds time-halved levels and takes a finite Adam
-step, its block applies traced with their level, route and storage.
+step, its block applies traced with their level, route, storage and W's
+layout (dense at bw 84); the factor W of blocks K3 takes on a cluster is
+stored packed, with the dense factor's values.
 Imports nothing of JAX; a few seconds."""
 
 import dataclasses
@@ -65,7 +67,7 @@ def test_time_coarsened_trainer_takes_a_finite_step(traced):
     if not traced:
         assert spans == [] and counters == {}
         return
-    attrs = {"level": 0, "route": "plain", "storage": "bf16_factored"}
+    attrs = {"level": 0, "route": "plain", "storage": "bf16_factored", "layout": "dense"}
     blocks = [s for s in spans if s.name == "vcycle.block_apply"]
     assert blocks and all(s.attrs == attrs for s in blocks)
     assert all(spans[s.parent].name in ("vcycle.smooth_pre", "vcycle.smooth_post")
@@ -73,3 +75,34 @@ def test_time_coarsened_trainer_takes_a_finite_step(traced):
     launches = counters["block_apply.launches"]
     assert all(a == attrs for _, _, a in launches)
     assert len(launches) == len(blocks) + 21  # and the one hierarchy's lmax iteration
+
+
+@pytest.mark.parametrize("nt,m", [(25, 7), (50, 7), (8, 7)])
+def test_factor_is_stored_packed_where_k3_takes_a_cluster(nt, m):
+    """`_block_inverse` in 'bf16_factored' storage gives W = L^-T as its
+    upper triangle's rows (`pack_upper`) where K3 takes the cluster kernel
+    (the long window's bw 175 and 350), with exactly the entries of the
+    dense factor it gives at other widths (bw 56), which the plain K3 then
+    applies alike."""
+    from mech_nn_discovery_pde_torch.ops import fused_smoother as fs
+    from mech_nn_discovery_pde_torch.solvers.multigrid import MultigridSolver
+
+    bw = nt * m
+    g = torch.Generator().manual_seed(bw)
+    M = torch.randn((1, 2, bw, bw), generator=g)
+    B = M @ M.transpose(-1, -2) / bw + torch.eye(bw)
+    solver = type("S", (), {"_factored_binv": True})()
+    w = MultigridSolver._block_inverse(solver, B, nt)
+    L = torch.linalg.cholesky(B + 1e-6 * B.diagonal(dim1=-2, dim2=-1).amax(-1)[..., None, None]
+                              * torch.eye(bw))
+    dense = torch.linalg.solve_triangular(L, torch.eye(bw).expand_as(B), upper=False).mT.triu()
+    packed = fs.factored_layout(nt, bw) == "packed"
+    assert packed == (bw > 168)
+    if packed:
+        assert tuple(w.shape) == (1, 2, fs.packed_off(bw, bw))
+        assert torch.equal(fs.unpack_upper(w), dense)
+    else:
+        assert torch.equal(w, dense)
+    r = torch.randn((1, bw * 2), generator=g)
+    assert torch.equal(fs.factored_block_apply_plain(w.to(torch.bfloat16), r, nt),
+                       fs.factored_block_apply_plain(dense.to(torch.bfloat16), r, nt))

@@ -41,9 +41,9 @@ def _per_sm(geo, n_sm):
 
 
 def _in_flight(geo, bw, eb):
-    """Bytes of blocks (panels, a cluster CTA's rows) in flight per SM while
-    each CTA computes on one: (stages - 1) a CTA."""
-    unit = {"streamed": bw, "panels": geo.panel_rows, "cluster": geo.panel_rows}[geo.route]
+    """Bytes of blocks (panels) in flight per SM while each CTA computes on
+    one: (stages - 1) a CTA."""
+    unit = {"streamed": bw, "panels": geo.panel_rows}[geo.route]
     return _per_sm(geo, H100_SMS) * (geo.stages - 1) * unit * bw * eb
 
 
@@ -160,11 +160,11 @@ def test_line_block_geometry_every_width(kernel):
     batch (bs 8 x 256 lines): the route `line_block_route` gives for the
     geometry's rows, streamed exactly to the kernel's crossover; every
     block by a bulk copy (`bulk`; the whole block at an aligned pointer
-    where its bytes are a multiple of 16); from bw 56 up,
-    at least 32 KB of blocks (panels, a cluster CTA's rows) in flight per SM
-    while each CTA computes on one, on every route of more than one stage
-    (the cluster kernel's blocks from bw 190 take one stage a CTA, whose
-    next item loads while the SM's other CTAs compute)."""
+    where its bytes are a multiple of 16); from bw 56 up, at least 32 KB
+    of blocks (panels) in flight per SM while each CTA computes on one, on
+    the streamed and panel routes of more than one stage (the cluster
+    kernel's geometry follows its own rule, measured latency-bound:
+    test_line_block_geometry_tiles_wide_blocks)."""
     widest, largest, eb, factored = STREAMED[kernel]
     for bw in range(1, largest + 1):
         geo = fs.line_block_geometry(8, 256, bw, eb, H100_SMS, factored)
@@ -175,7 +175,7 @@ def test_line_block_geometry_every_width(kernel):
         assert smem == geo.smem_bytes
         if geo.route == "streamed":
             assert flags & 1 == (bw * bw * eb % 16 == 0)
-        if bw >= 56 and (geo.stages > 1 or bw <= widest):
+        if bw >= 56 and (geo.stages > 1 or bw <= widest) and geo.route != "cluster":
             assert _in_flight(geo, bw, eb) >= 32 * 1024, (bw, geo)
 
 
@@ -212,14 +212,23 @@ def test_line_block_walk_banks(kernel):
         if any(i + q < 63 for i in range(w0, min(63, w0 + 32)))) > 2
 
 
-@pytest.mark.parametrize("nt", [3, 5])
+# nt of the plain-versus-JAX test, and its m where not 7: the odd nt 3 and 5
+# (bw 21 and 35), then K3's cluster widths bw 169, 175, 350 and 916, where
+# its W is packed
+PLAIN_NT = {3: 7, 5: 7, 13: 13, 25: 7, 50: 7, 229: 4}
+
+
+@pytest.mark.parametrize("nt", list(PLAIN_NT))
 @pytest.mark.parametrize("factored", [False, True], ids=["k2", "k3"])
 def test_plain_block_apply_odd_nt_matches_jax(nt, factored):
     """At odd nt (bw 21 and 35 at m 7: blocks whose bytes are not a multiple
-    of 16 in f32 and bf16), K2's and K3's plain versions equal the JAX
-    package's line-block route (`MultigridSolver._block_apply`, per sample)
-    in f64 within 1e-10, on random blocks (upper-triangular for K3) of bs 2
-    and S 3 lines, with and without the Chebyshev epilogue."""
+    of 16 in f32 and bf16) and at K3's cluster widths (bw 169, 175, 350 and
+    916), K2's and K3's plain versions equal the JAX package's line-block
+    route (`MultigridSolver._block_apply`, per sample) in f64 within 1e-10,
+    on random blocks (upper-triangular for K3) of bs 2 and S 3 lines, with
+    and without the Chebyshev epilogue.  Where K3's W is stored packed
+    (`factored_layout`), its plain version on the packed bf16 W equals it on
+    the dense one bit for bit in f32, with and without the epilogue."""
     import types
 
     import jax.numpy as jnp
@@ -228,7 +237,7 @@ def test_plain_block_apply_odd_nt_matches_jax(nt, factored):
     from mech_nn_discovery_pde_tpu.ops.system import PDESystem as JaxSystem
     from mech_nn_discovery_pde_tpu.solvers.multigrid import MultigridSolver as JaxSolver
 
-    m, bs, S = 7, 2, 3
+    m, bs, S = PLAIN_NT[nt], 2, 3
     bw = nt * m
     rng = np.random.default_rng(nt + 10 * factored)
     blocks = rng.standard_normal((bs, S, bw, bw)) / bw
@@ -257,6 +266,45 @@ def test_plain_block_apply_odd_nt_matches_jax(nt, factored):
     d = torch.tensor(x0)
     plain(tb, tr, nt, d=d, c1=c1, c2=c2)
     assert rel(d, c1[:, None].numpy() * x0 + c2[:, None].numpy() * want) <= 1e-10
+    packed = factored and fs.factored_layout(nt, bw) == "packed"
+    assert packed == (factored and bw > 168)
+    if packed:
+        w = tb.to(torch.bfloat16)
+        wp = fs.pack_upper(w)
+        assert tuple(wp.shape) == (bs, S, fs.packed_off(bw, bw))
+        r32, x32 = tr.float(), torch.tensor(x0, dtype=torch.float32)
+        assert torch.equal(plain(wp, r32, nt), plain(w, r32, nt))
+        d_p, d_d = x32.clone(), x32.clone()
+        plain(wp, r32, nt, d=d_p, c1=c1.float(), c2=c2.float())
+        plain(w, r32, nt, d=d_d, c1=c1.float(), c2=c2.float())
+        assert torch.equal(d_p, d_d)
+
+
+@pytest.mark.parametrize("bw", [1, 2, 7, 169, 350, 916])
+def test_pack_upper_round_trips(bw):
+    """`pack_upper` keeps each block's upper triangle, row i from
+    `packed_off(bw, i)` (a multiple of 8 entries): W[i, i:] after i mod 8
+    zeros, then zeros to the width rounded up to 8, also from a transposed
+    view (the solver packs (L^-1)^T without forming it); `unpack_upper`
+    gives the blocks back exactly, zero below the diagonal; `packed_width`
+    reads bw back."""
+    import torch
+
+    g = torch.Generator().manual_seed(bw)
+    w = torch.randn((2, 3, bw, bw), generator=g).to(torch.bfloat16).triu()
+    wp = fs.pack_upper(w)
+    bwp = -(-bw // 8) * 8
+    assert wp.dtype == w.dtype and tuple(wp.shape) == (2, 3, fs.packed_off(bw, bw))
+    assert fs.packed_width(wp.shape[-1]) == bw
+    for i in {0, bw // 2, bw - 1}:
+        o, a = fs.packed_off(bw, i), i // 8 * 8
+        assert o % 8 == 0 and fs.packed_off(bw, i + 1) - o == bwp - a
+        assert torch.equal(wp[..., o + i - a:o + i - a + bw - i], w[..., i, i:])
+        assert not wp[..., o:o + i - a].any() and not wp[..., o + bw - a:o + bwp - a].any()
+    assert torch.equal(fs.unpack_upper(wp), w)
+    assert torch.equal(fs.pack_upper(w.transpose(-1, -2).contiguous().transpose(-1, -2)), wp)
+    with pytest.raises(ValueError, match="no packed upper triangle"):
+        fs.packed_width(fs.packed_off(bw, bw) + 1)
 
 
 WIDE = {
@@ -297,8 +345,9 @@ def _row_cover(geo, bs, S, bw):
     """How often each (item, block row) is computed by the CTAs' walk
     (csrc/line_block.cu): the panel kernel's CTA c takes the units (item,
     panel) c, c + ctas, ...; the cluster kernel's cluster k the items k,
-    k + clusters, ..., its CTA j the rows j * rows, ... of each; the
-    two-sweep kernel's CTA c the items c, c + ctas, ..., all panels."""
+    k + clusters, ..., its CTA j the rows of `cluster_rows` from its j-th
+    boundary; the two-sweep kernel's CTA c the items c, c + ctas, ..., all
+    panels."""
     rows, items = geo.panel_rows, bs * S
     seen = np.zeros((items, bw), dtype=np.int64)
     if geo.route == "panels":
@@ -309,10 +358,11 @@ def _row_cover(geo, bs, S, bw):
                 seen[it, p * rows:min(bw, (p + 1) * rows)] += 1
     elif geo.route == "cluster":
         clusters = geo.ctas // geo.cluster
+        b = fs.cluster_rows(bw, geo.cluster)
         for k in range(clusters):
             for it in range(k, items, clusters):
                 for j in range(geo.cluster):
-                    seen[it, j * rows:min(bw, (j + 1) * rows)] += 1
+                    seen[it, b[j]:b[j + 1]] += 1
     else:
         for c in range(geo.ctas):
             for it in range(c, items, geo.ctas):
@@ -359,15 +409,20 @@ def test_line_block_geometry_tiles_wide_blocks(case):
         assert factored and eb == 2 and geo.bulk
         C = geo.cluster
         assert 2 <= C <= 8 and C == -(-bw // rows) and C * rows >= bw > (C - 1) * rows
-        # one stage, or 2 in clusters of 2 at the mid widths (bw 175)
-        assert geo.stages == 1 or (C == 2 and geo.stages == 2 and bw < 191)
-        assert geo.ctas % C == 0
+        assert 1 <= geo.stages <= 2 and geo.ctas % C == 0
         per_sm = -(-geo.ctas // H100_SMS)
-        assert 1 <= geo.ctas // C <= min(bs * S, 3 * H100_SMS // C)
-        assert per_sm <= 3 and per_sm * (geo.smem_bytes + 1024) <= SMEM_PER_SM
-        if bs * S >= H100_SMS:
-            # the most CTAs an SM: one more would not fit
-            assert per_sm == 3 or (per_sm + 1) * (geo.smem_bytes + 1024) > SMEM_PER_SM
+        assert 1 <= geo.ctas // C <= min(bs * S, 2 * H100_SMS // C)
+        assert per_sm <= 2 and per_sm * (geo.smem_bytes + 1024) <= SMEM_PER_SM
+        # 2 CTAs an SM where any cluster's rows fit them, the smallest such C,
+        # and a second stage where it fits too
+        budget = lambda k: min(SMEM_PER_SM // k - 1024, SMEM_PER_BLOCK)  # noqa: E731
+        smem = lambda c, st: fs.line_block_smem_bytes(bw, st, 2, True, -(-bw // c))  # noqa: E731
+        fit = [c for c in range(2, 9) if smem(c, 1) <= budget(2)]
+        if fit:
+            assert C == fit[0]
+            if bs * S >= H100_SMS:
+                assert per_sm == 2
+        assert (geo.stages == 2) == (smem(C, 2) <= budget(2 if fit else 1))
     else:
         assert geo.route == "two_sweep" and factored
         assert -(-bw // rows) > 8
@@ -478,7 +533,9 @@ def test_block_apply_dispatch(nt, m, monkeypatch):
     of the C launcher it calls, the geometry's launch arguments, and the
     launch counted under the kernel of its route (at bw 280 and 350 the
     row-tiled ones; the launch's shared memory and flags those of
-    `line_block_launch_args` for the blocks' address)."""
+    `line_block_launch_args` for the blocks' address).  K3's W is packed
+    exactly where its route is the cluster kernel (bw 175, 280 and 350:
+    `factored_layout`), and the launcher refuses W in the other layout."""
     import torch
 
     from mech_nn_discovery_pde_torch.ops import _cuda
@@ -500,8 +557,12 @@ def test_block_apply_dispatch(nt, m, monkeypatch):
     for kernels, dtype in ((fs._K2_FN[torch.float32], torch.float32),
                            (fs._K2_FN[bf16], bf16), (fs._K3_FN, bf16)):
         calls.clear()
-        fs._launch_line_block(kernels, torch.zeros((bs, S, bw, bw), dtype=dtype), r, nt, None,
-                              None, None)
+        blocks = torch.zeros((bs, S, bw, bw), dtype=dtype)
+        if kernels.factored and fs.factored_layout(nt, bw) == "packed":
+            with pytest.raises(ValueError, match="stored packed"):
+                fs._launch_line_block(kernels, blocks, r, nt, None, None, None)
+            blocks = fs.pack_upper(blocks)
+        fs._launch_line_block(kernels, blocks, r, nt, None, None, None)
         lib = "point_block" if point else "line_block"
         fn = kernels.point_fn if point else kernels.line_fn
         (called, n_args, args), counted_call = calls
@@ -516,6 +577,8 @@ def test_block_apply_dispatch(nt, m, monkeypatch):
         assert counted_call == (lib, kernels.line_counted[geo.route])
         assert (geo.route != "streamed") == (bw > {torch.float32: 137, bf16: 240}[dtype]
                                              if not kernels.factored else bw > 168)
+        if kernels.factored:
+            assert (blocks.ndim == 3) == (geo.route == "cluster")
 
 
 def _bank_ways(byte_addrs):
@@ -548,3 +611,51 @@ def test_point_block_shared_memory_banks(bw):
                                        for q in qs if c <= q % bw]) <= 2
                     assert _bank_ways([(q * bw + j) * 2 for q, j in zip(qs, col)
                                        if j >= q % bw]) <= 2
+
+
+def test_cluster_shares_are_even():
+    """At every width the cluster kernel takes (bw 169 to 916), the split
+    `cluster_rows` gives each CTA of the cluster contiguous rows, together
+    every row once, whose packed entries are within 10 % of the mean share
+    of the packed block (or within one of its rows of it); the launch's rows are
+    ceil(bw / C), from which C follows; the layout, sized for the largest
+    share and the most rows, fits a CTA's shared memory and, for the CTAs
+    an SM holds, the SM's."""
+    for bw in range(169, 917):
+        geo = fs.line_block_geometry(8, 1024, bw, 2, H100_SMS, True)
+        assert geo.route == "cluster", bw
+        C = geo.cluster
+        assert geo.panel_rows == -(-bw // C) and -(-bw // geo.panel_rows) == C
+        b = fs.cluster_rows(bw, C)
+        assert b[0] == 0 and b[-1] == bw and all(b[c] < b[c + 1] for c in range(C)), (bw, b)
+        mean = fs.packed_off(bw, bw) / C
+        for c in range(C):
+            share = fs.packed_off(bw, b[c + 1]) - fs.packed_off(bw, b[c])
+            row = fs.packed_off(bw, b[c] + 1) - fs.packed_off(bw, b[c])
+            assert abs(share - mean) <= max(0.1 * mean, row), (bw, C, b)
+        assert geo.smem_bytes <= SMEM_PER_BLOCK
+        assert _per_sm(geo, H100_SMS) * (geo.smem_bytes + 1024) <= SMEM_PER_SM
+
+
+# the long window's cluster geometries (tools/line_block_sweep.py --k3 on an
+# H100): ctas, stages, shared memory, cluster, launch rows, the split
+LONG_WINDOW_PINNED = {
+    "level0": ((8, 1024, 350), (264, 1, 83392, 2, 175, (0, 104, 350))),
+    "level1": ((8, 256, 175), (264, 2, 43024, 2, 88, (0, 53, 175))),
+}
+
+
+@pytest.mark.parametrize("level", list(LONG_WINDOW_PINNED))
+def test_cluster_geometry_pinned_at_the_long_window(level):
+    """K3 at the long window's smoothed levels: the fine level's bw 350 on
+    clusters of 2 CTAs of one stage (2 an SM), level 1's bw 175 on clusters
+    of 2 of 2 stages, each CTA an equal share of the packed block (bw 350:
+    rows 0-103 and 104-349; bw 175: 0-52 and 53-174), the fastest the
+    sweep found."""
+    (bs, S, bw), (ctas, stages, smem, C, rows, split) = LONG_WINDOW_PINNED[level]
+    geo = fs.line_block_geometry(bs, S, bw, 2, H100_SMS, True)
+    assert geo.route == "cluster"
+    assert (geo.ctas, geo.stages, geo.smem_bytes, geo.cluster, geo.panel_rows) == (
+        ctas, stages, smem, C, rows)
+    assert fs.cluster_rows(bw, C) == split
+    assert fs.factored_layout(bw // 7, bw) == "packed"

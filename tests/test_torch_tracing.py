@@ -239,10 +239,11 @@ def test_block_apply_spans_and_launches(mg):
     inside it (Chebyshev 2 + 2: two a pass), and one `block_apply.launches`
     count per block apply: the spans' and the lmax power iteration's 21 a
     smoothed level per hierarchy, one hierarchy a step; each with the
-    level, the route ('plain' on the CPU) and the storage.  Untraced, none
-    (test_untraced_steps_record_nothing_and_match_traced)."""
+    level, the route ('plain' on the CPU), the storage and W's layout.
+    Untraced, none (test_untraced_steps_record_nothing_and_match_traced)."""
     spans, counters = mg["traced"][1][0], mg["traced"][2]
-    attrs = {"level": 0, "route": "plain", "storage": "f32"}  # n_grid 2: level 0 smoothed
+    attrs = {"level": 0, "route": "plain", "storage": "f32",
+             "layout": "dense"}  # n_grid 2: level 0 smoothed
     blocks = [s for s in spans if s.name == "vcycle.block_apply"]
     assert blocks and all(s.attrs == attrs for s in blocks)
     n_pass = 0

@@ -26,8 +26,10 @@ In one process, each comparison in turns other, this, this, other:
    each in turns; then the fine level's kernel at the step's own blocks
    (also K2 bf16, from one 'bf16' layer's hierarchy), timed as in 2.
 
-Prints the card's name and power limit first and one JSON object of the
-numbers last; exits nonzero if a check fails.  Needs a CUDA device and nvcc.
+K3's W goes to each checkout in the layout that checkout stores at the
+width (its `factored_layout`; dense where it has none).  Prints the card's
+name and power limit first and one JSON object of the numbers last; exits
+nonzero if a check fails.  Needs a CUDA device and nvcc.
 """
 
 from __future__ import annotations
@@ -83,6 +85,8 @@ class OtherLineBlock:
         spec.loader.exec_module(mod)
         self.geometry_fn = mod.line_block_geometry
         self.launch_args_fn = getattr(mod, "line_block_launch_args", None)
+        # K3's storage of W by width: the other's, dense where it has no choice
+        self.layout_fn = getattr(mod, "factored_layout", lambda nt, bw: "dense")
         self.geometry_type = mod.LineBlockGeometry
         log(f"other line_block.cu from {pkg} built in {time.perf_counter() - t0:.1f} s")
 
@@ -110,13 +114,32 @@ class OtherLineBlock:
 
     @contextlib.contextmanager
     def active(self):
-        own = _cuda.library("line_block"), fs.line_block_geometry, fs.line_block_launch_args
+        from mech_nn_discovery_pde_torch.solvers import multigrid
+
+        own = (_cuda.library("line_block"), fs.line_block_geometry, fs.line_block_launch_args,
+               fs.factored_layout, multigrid.factored_layout)
         _cuda._LIBS["line_block"], fs.line_block_geometry = self.lib, self.geometry
         fs.line_block_launch_args = self.launch_args
+        fs.factored_layout = multigrid.factored_layout = self.layout_fn
         try:
             yield
         finally:
-            _cuda._LIBS["line_block"], fs.line_block_geometry, fs.line_block_launch_args = own
+            (_cuda._LIBS["line_block"], fs.line_block_geometry, fs.line_block_launch_args,
+             fs.factored_layout, multigrid.factored_layout) = own
+
+
+def as_layout(blocks, nt, factored):
+    """K3's W in the layout the active checkout stores at its width
+    (`factored_layout`: packed or dense); K2's blocks as they are."""
+    if not factored:
+        return blocks
+    bw = fs.packed_width(blocks.shape[-1]) if blocks.ndim == 3 else blocks.shape[-1]
+    packed = fs.factored_layout(nt, bw) == "packed"
+    if packed and blocks.ndim == 4:
+        return fs.pack_upper(blocks).contiguous()
+    if not packed and blocks.ndim == 3:
+        return fs.unpack_upper(blocks)
+    return blocks
 
 
 def turns(other):
@@ -136,13 +159,14 @@ def streamed_bitwise(dev, seed, other, bs=32, S=1024, nt=8, m=7):
     c2 = torch.rand((bs,), generator=g, device=dev)
     binv, W = cs.spd_blocks(bs, S, bw, g, dev)
     operands = {"k2": binv, "k2_bf16": binv.to(torch.bfloat16), "k3": W}
-    for name, key, kern, _, _ in cs.line_kernels():
+    for name, key, kern, _, factored in cs.line_kernels():
         outs = {}
         for who, ctx in turns(other)[:2]:
             with ctx():
+                w = as_layout(operands[key], nt, factored)
                 d = b.clone()
-                kern(operands[key], x, nt, d=d, c1=c1, c2=c2)
-                outs[who] = (kern(operands[key], x, nt), d)
+                kern(w, x, nt, d=d, c1=c1, c2=c2)
+                outs[who] = (kern(w, x, nt), d)
         same = all(torch.equal(a, c) for a, c in zip(outs["this"], outs["other"]))
         log(f"{name} streamed at the GL fine level (bs {bs}, {S} lines of {bw}^2): "
             f"{'bit for bit' if same else 'DIFFERENT from'} the other checkout's, with and "
@@ -155,17 +179,20 @@ def kernel_turns(label, kern, plain, blocks, x, nt, factored, other):
     """One kernel at one shape on each checkout's build: checked against the
     plain version (1e-5), then alone, back to back (the mean of each
     checkout's two turns) and on the device (`chip_smoke.graph_ms`), beside
-    the bound (`chip_smoke.block_bound`)."""
+    the bound (`chip_smoke.block_bound`).  K3's W goes to each checkout in
+    the layout it stores at the width (`as_layout`)."""
     want = plain(blocks, x, nt)
-    t = kern(blocks, x, nt)
-    run = lambda: kern(blocks, x, nt, d=t)  # noqa: E731
+    t = kern(as_layout(blocks, nt, factored), x, nt)
+    operand = {}
+    run = lambda: kern(operand["w"], x, nt, d=t)  # noqa: E731
     row, b2b = {}, {"this": [], "other": []}
     for who, ctx in turns(other):
         pre = "" if who == "this" else "other_"
         with ctx():
+            operand["w"] = as_layout(blocks, nt, factored)
             if f"{pre}ms" not in row:
                 cs.check(f"{label} on {'this' if who == 'this' else 'the other'} checkout's "
-                         "kernel", cs.rel_err(kern(blocks, x, nt), want), 1e-5)
+                         "kernel", cs.rel_err(kern(operand["w"], x, nt), want), 1e-5)
                 row[f"{pre}ms"] = cs.time_ms(run)
                 row[f"{pre}device_ms"] = cs.graph_ms(run)
             b2b[who].append(cs.time_ms_back_to_back(run))
@@ -275,7 +302,8 @@ def long_window_turns(dev, seed, other, bs=8, dims=(50, 32, 32)):
         res = {} if precond == "bf16" else step_turns(layer, c0, r0, i0, steps, label, other)
         blocks, nt = fine_blocks(layer, c0, r0, i0, steps)
         g = torch.Generator(device=dev).manual_seed(seed + 6)
-        x = torch.randn((bs, blocks.shape[1] * blocks.shape[2]), generator=g, device=dev)
+        x = torch.randn((bs, blocks.shape[1] * nt * layer.system.var_set.n_mi), generator=g,
+                        device=dev)
         name, _, kern, plain, factored = kernels[key]
         res["fine_level"] = kernel_turns(f"{name} at the long window's fine level ({precond})",
                                          kern, plain, blocks, x, nt, factored, other)

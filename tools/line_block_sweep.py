@@ -7,8 +7,9 @@ through the library's own launchers.
 Default (the row-tiled kernels at one shape, the long window's fine level):
 K2 (f32 and bf16 B^-1, the panel kernel): panels of 24, 16 and 8 rows at 1
 to 4 CTAs an SM, with 2 stages and with the most (up to 4) that fit.  K3
-(the cluster kernel): one stage a CTA at every cluster of 2 to 8 CTAs and
-1 to 3 CTAs an SM, and one CTA an SM with 2 and 3 stages.
+(the cluster kernel, on the packed W): every cluster of 2 to 8 CTAs at 1
+to 4 CTAs an SM of 1, 2 and 3 stages, where they fit.  --k3 sweeps K3
+alone.
 
 --mid (the crossover from the streamed kernels to the row-tiled ones): at
 every bw = nt * m for nt 8 to 34 at m 7 and m 5 (bw 40 to 238), bs x lines
@@ -17,7 +18,7 @@ streamed kernel (1, 2, 4 and 8 CTAs an SM of 2 stages and 1 or 2 CTAs of 3,
 where they fit; one CTA of one stage where none does) and on the panel
 kernel (24 and 16 rows, 3 CTAs an SM of 2 and 3 stages), and K3 on the
 streamed kernel (as K2) and on the cluster
-kernel (clusters of 2 and 3 CTAs: 1 to 4 CTAs an SM of one stage, 2 and 3
+kernel (clusters of 2 and 3 CTAs: 1 to 4 CTAs an SM of one stage, 2 to 4
 of two); the full table goes to --out, and a summary by width (the fastest
 of each kernel, the geometry `line_block_geometry` picks and its time) to
 the standard output.
@@ -77,15 +78,17 @@ def geometry(bw, eb, factored, rows, stages, ctas):
 
 def bound_ms(blocks, factored) -> float:
     """B^-1 (K3: W's upper triangle, bw (bw + 1) / 2 entries a block) read
-    once, r and d read and d written, at 3.35 TB/s."""
+    once, r and d read and d written, at 3.35 TB/s.  `blocks` dense."""
     bs, S, bw, _ = blocks.shape
     entries = bs * S * (bw * (bw + 1) // 2 if factored else bw * bw)
     return (entries * blocks.element_size() + 12 * bs * S * bw) / 3.35e9
 
 
 def sweep(lib, label, blocks, x, nt, factored, geometries, out=print):
-    """Time `blocks` on each geometry; returns [(geometry, ms)]."""
+    """Time `blocks` (dense; K3's cluster geometries take them packed) on
+    each geometry; returns [(geometry, ms)]."""
     bs, S, bw, _ = blocks.shape
+    packed = fs.pack_upper(blocks).contiguous() if factored else None
     m, eb = bw // nt, blocks.element_size()
     fn = getattr(lib, fs._K3_FN.line_fn if factored else fs._K2_FN[blocks.dtype].line_fn)
     plain = (fs.factored_block_apply_plain if factored else fs.block_apply_plain)(blocks, x, nt)
@@ -94,11 +97,13 @@ def sweep(lib, label, blocks, x, nt, factored, geometries, out=print):
     stream = _cuda.stream_ptr(x.device)
     rows_out = []
     for geo in geometries:
-        smem, flags = fs.line_block_launch_args(geo, bw, eb, factored, blocks.data_ptr())
-        call = lambda: fn(blocks.data_ptr(), x.data_ptr(), d.data_ptr(), None, None,  # noqa: E731
+        w = packed if geo.route == "cluster" else blocks
+        smem, flags = fs.line_block_launch_args(geo, bw, eb, factored, w.data_ptr())
+        call = lambda: fn(w.data_ptr(), x.data_ptr(), d.data_ptr(), None, None,  # noqa: E731
                           m, nt, S, bs, geo.ctas, geo.panel_rows, geo.stages, smem, flags, stream)
         what = (f"{label} {geo.route} rows {geo.panel_rows} stages {geo.stages} ctas {geo.ctas}"
-                + (f" walk {geo.walk}" if geo.route == "streamed" else ""))
+                + (f" walk {geo.walk}" if geo.route == "streamed" else "")
+                + (f" cluster {geo.cluster} smem {smem}" if geo.route == "cluster" else ""))
         code = call()
         if code:
             raise RuntimeError(f"{what}: CUDA error {code}")
@@ -138,10 +143,10 @@ def mid_geometries(bw, eb, factored, items, n_sm):
                     geos.append(g)
         return geos
     for c in (2, 3):
-        rows = 8 * -(-bw // (8 * c))
+        rows = -(-bw // c)
         if rows >= bw or -(-bw // rows) != c:
             continue
-        for per_sm, stages in ((4, 1), (3, 1), (2, 1), (1, 1), (3, 2), (2, 2)):
+        for per_sm, stages in ((4, 1), (3, 1), (2, 1), (1, 1), (4, 2), (3, 2), (2, 2)):
             smem = fs.line_block_smem_bytes(bw, stages, 2, True, rows)
             if fits(per_sm, smem):
                 geos.append(geometry(bw, eb, True, rows, stages,
@@ -197,6 +202,7 @@ def main() -> int:
     ap.add_argument("--nt", type=int, default=50)
     ap.add_argument("--m", type=int, default=7)
     ap.add_argument("--mid", action="store_true")
+    ap.add_argument("--k3", action="store_true")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -216,7 +222,7 @@ def main() -> int:
     bw = nt * args.m
     x = torch.randn((bs, nt * S * args.m), generator=g, device=dev)
     blocks = torch.randn((bs, S, bw, bw), generator=g, device=dev) / bw
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (() if args.k3 else (torch.float32, torch.bfloat16)):
         b = blocks.to(dtype)
         geos = []
         for rows in (24, 16, 8):
@@ -231,16 +237,20 @@ def main() -> int:
     W = blocks.triu().to(torch.bfloat16)
     geos = []
     for c in range(2, 9):
-        rows = 8 * -(-bw // (8 * c))
-        if fs.line_block_route(bw, rows, True) != "cluster":
+        rows = -(-bw // c)
+        if fs.line_block_route(bw, rows, True) != "cluster" or -(-bw // rows) != c:
             continue
-        C = -(-bw // rows)
-        for per_sm, stages in ((3, 1), (2, 1), (1, 1), (1, 2), (1, 3)):
-            smem = fs.line_block_smem_bytes(bw, stages, 2, True, rows)
-            if fits(per_sm, smem):
-                geos.append((rows, stages, C * min(bs * S, n_sm * per_sm // C)))
-    sweep(lib, f"K3 bw {bw}", W, x, nt, True,
-          [geometry(bw, 2, True, *g_) for g_ in sorted(set(geos))])
+        for per_sm in (4, 3, 2, 1):
+            for stages in (1, 2, 3):
+                smem = fs.line_block_smem_bytes(bw, stages, 2, True, rows)
+                if fits(per_sm, smem):
+                    geos.append((rows, stages, c * min(bs * S, n_sm * per_sm // c)))
+    pick = fs.line_block_geometry(bs, S, bw, 2, n_sm, True)
+    rows, _ = sweep(lib, f"K3 bw {bw}", W, x, nt, True,
+                    [geometry(bw, 2, True, *g_) for g_ in sorted(set(geos))] + [pick])
+    best = min(rows, key=lambda row: row[1])
+    print(f"K3 bw {bw}: fastest {best[0]} {best[1]:.4f} ms; picked {pick} {rows[-1][1]:.4f} ms",
+          flush=True)
     return 0
 
 
